@@ -1,0 +1,25 @@
+"""pdGRASS core of the port: graph substrate and the sparsifier's steps.
+
+    Graph / build_graph / generators   (repro_torch.core.graph)
+    DeviceGraph                        (repro_torch.core.device_graph)
+    graph_ops primitives               (repro_torch.core.graph_ops)
+    Prepared, Sparsifier, prepare, pdgrass (repro_torch.core.sparsify)
+"""
+from repro_torch.core.graph import (Graph, build_graph, grid2d, mesh2d,
+                                    barabasi_albert, watts_strogatz,
+                                    random_regular, star_hub, suite)
+from repro_torch.core.device_graph import DeviceGraph
+from repro_torch.core.graph_ops import (coalesce_edges, compact_labels,
+                                        handshake, pointer_jump,
+                                        propose_accept_matching,
+                                        segment_argmax)
+from repro_torch.core.sparsify import Prepared, Sparsifier, prepare, pdgrass
+
+__all__ = [
+    "Graph", "DeviceGraph", "build_graph", "grid2d", "mesh2d",
+    "barabasi_albert", "watts_strogatz", "random_regular", "star_hub",
+    "suite",
+    "segment_argmax", "handshake", "propose_accept_matching",
+    "pointer_jump", "compact_labels", "coalesce_edges",
+    "Prepared", "Sparsifier", "prepare", "pdgrass",
+]

@@ -1,0 +1,326 @@
+"""Step 4 of pdGRASS: strict-similarity off-tree edge recovery.
+
+The port of ``repro.core.recovery``.  Two engines, bit-identical on the
+same input:
+
+  * :func:`recover_serial` — numpy oracle, the paper's sequential
+    per-subtask greedy (Algorithm 1, step 4).
+  * :func:`recover_rounds` — the round engine.  Each round takes, for every
+    open subtask, its first ``block_size`` unprocessed edges (capped at
+    ``max_candidates`` overall), resolves their order inside the block
+    (Lemma 8), then marks the rest of each subtask against the newly
+    recovered edges.
+
+Where the port departs in form from the reference (never in result):
+
+  * The rounds' ``lax.while_loop`` (``recovery.py:290``) is a Python loop
+    that tests its condition on the host EVERY round.  With
+    ``stop_at_target=True`` one extra round recovers more edges, which
+    changes what ``select_top`` sees and ``stats.rounds``.
+  * The K x K in-block ``lax.scan`` (``recovery.py:219-233``) is a 128-step
+    sequential pass.  Its result is the unique fixpoint of
+    ``alive[i] = not any(alive[j] & sim[j, i] for j < i)``; the port
+    iterates that map on the whole block (each pass fixes at least one
+    more leading entry) and tests for the fixpoint on the host every few
+    passes.  Chains of similar candidates are short, so this is a handful
+    of tensor ops instead of 128 Python steps.
+  * The chunked marking pass (``recovery.py:247-273``, ``lax.map`` with a
+    ``lax.cond`` per chunk) computes the active-chunk mask on the device,
+    takes its indices with one host sync per round and marks the rows of
+    only those chunks in one batched op.  A row is tested against the at
+    most ``block_size`` candidates of its own subtask, not all K.
+  * ``mode="drop"`` scatters are masked explicitly (``scatter_drop``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph_ops import scatter_drop
+from repro_torch.obs import get_tracer
+
+STATUS_OPEN = 0       # not yet processed
+STATUS_RECOVERED = 1  # recovered into the sparsifier
+STATUS_SKIPPED = 2    # marked strictly similar to an earlier recovered edge
+
+
+class RecoveryProblem(NamedTuple):
+    """Flat per-off-tree-edge tensors, sorted by (subtask asc, score desc).
+
+    Padding rows (to a multiple of the chunk size) carry ``seg == -1``.
+    """
+
+    sig_u: torch.Tensor   # [m, c+1] int32 ancestor signature of endpoint u
+    sig_v: torch.Tensor   # [m, c+1] int32 ancestor signature of endpoint v
+    beta: torch.Tensor    # [m] int32  beta* = min(d(u,lca), d(v,lca), c)
+    seg: torch.Tensor     # [m] int32  contiguous subtask ids (-1 = padding)
+    score: torch.Tensor   # [m] float32 spectral criticality (w * R_T)
+
+    @property
+    def m(self) -> int:
+        return int(self.sig_u.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# Similarity predicate (shared by both engines)
+# ---------------------------------------------------------------------------
+
+def _apb_table(c1: int) -> np.ndarray:
+    a = np.arange(c1)
+    return (a[:, None] + a[None, :]).astype(np.int32)  # [c1, c1]
+
+
+def match_table(sig_a, sig_b, beta_a):
+    """``[..., I, c1]`` x ``[..., J, c1]`` -> ``[..., I, J]`` bool: tree
+    distance(a_i, b_j) <= beta_a[i]."""
+    c1 = sig_a.shape[-1]
+    apb = torch.as_tensor(_apb_table(c1), device=sig_a.device)
+    eq = sig_a[..., :, None, :, None] == sig_b[..., None, :, None, :]
+    ok = eq & (apb <= beta_a[..., :, None, None, None])
+    return ok.flatten(-2).any(-1)
+
+
+def strict_similarity_matrix(sig_u_a, sig_v_a, beta_a, sig_u_b, sig_v_b):
+    """[I, J] bool: edge a_i (recovered) marks edge b_j (Definition 5)."""
+    m_uu = match_table(sig_u_a, sig_u_b, beta_a)
+    m_vv = match_table(sig_v_a, sig_v_b, beta_a)
+    m_uv = match_table(sig_u_a, sig_v_b, beta_a)
+    m_vu = match_table(sig_v_a, sig_u_b, beta_a)
+    return (m_uu & m_vv) | (m_uv & m_vu)
+
+
+def _pair_match(sig_a, sig_b, beta_a):
+    """Row-wise match: ``[R, S, c1]`` x ``[R, c1]`` -> ``[R, S]`` bool."""
+    c1 = sig_a.shape[-1]
+    apb = torch.as_tensor(_apb_table(c1), device=sig_a.device)
+    eq = sig_a[:, :, :, None] == sig_b[:, None, None, :]
+    ok = eq & (apb <= beta_a[:, :, None, None])
+    return ok.flatten(-2).any(-1)
+
+
+# ---------------------------------------------------------------------------
+# Serial oracle (numpy) — faithful transcription of the paper's step 4
+# ---------------------------------------------------------------------------
+
+def recover_serial(prob: RecoveryProblem) -> np.ndarray:
+    """Greedy in-order recovery per subtask; returns status[m] (numpy)."""
+    sig_u = prob.sig_u.cpu().numpy()
+    sig_v = prob.sig_v.cpu().numpy()
+    beta = prob.beta.cpu().numpy()
+    seg = prob.seg.cpu().numpy()
+    m = seg.shape[0]
+    status = np.full(m, STATUS_SKIPPED, dtype=np.int8)
+    status[seg >= 0] = STATUS_OPEN
+
+    bounds = np.flatnonzero(np.diff(np.concatenate([[-2], seg])) != 0)
+    bounds = np.concatenate([bounds, [m]])
+    c1 = sig_u.shape[1]
+    apb = _apb_table(c1)
+
+    def in_hood(sig_x, sig_ys, b):
+        eq = sig_x[None, :, None] == sig_ys[:, None, :]
+        return np.any(eq & (apb[None] <= b), axis=(1, 2))
+
+    for s in range(len(bounds) - 1):
+        lo, hi = bounds[s], bounds[s + 1]
+        if lo >= m or seg[lo] < 0:
+            continue
+        for i in range(lo, hi):
+            if status[i] != STATUS_OPEN:
+                continue
+            status[i] = STATUS_RECOVERED
+            rest = np.arange(i + 1, hi)
+            rest = rest[status[rest] == STATUS_OPEN]
+            if rest.size == 0:
+                continue
+            b = beta[i]
+            uu = in_hood(sig_u[i], sig_u[rest], b)
+            vv = in_hood(sig_v[i], sig_v[rest], b)
+            uv = in_hood(sig_u[i], sig_v[rest], b)
+            vu = in_hood(sig_v[i], sig_u[rest], b)
+            sim = (uu & vv) | (uv & vu)
+            status[rest[sim]] = STATUS_SKIPPED
+    return status
+
+
+# ---------------------------------------------------------------------------
+# Round engine
+# ---------------------------------------------------------------------------
+
+class RoundStats(NamedTuple):
+    rounds: int            # number of rounds executed
+    candidates: int        # total candidates examined
+    killed_in_block: int   # candidates killed inside blocks
+
+
+# fixpoint passes between host tests in _resolve_block
+_BLOCK_CHECK_EVERY = 4
+# rows marked in one batched op (bounds the [rows, block, c1, c1] temporaries)
+_MARK_ROWS = 1 << 16
+
+
+def _resolve_block(sim: torch.Tensor) -> torch.Tensor:
+    """``killed[i]`` of the in-order greedy over a block whose ``sim[j, i]``
+    (only j < i set) says candidate j marks candidate i.
+
+    Iterates ``killed = any_j(alive[j] & sim[j, :])`` from all-alive to its
+    fixpoint, which is the in-order scan's result."""
+    simf = sim.to(torch.float32)
+    killed = torch.zeros(sim.shape[0], dtype=torch.bool, device=sim.device)
+    while True:
+        for _ in range(_BLOCK_CHECK_EVERY):
+            prev = killed
+            killed = ((~killed).to(torch.float32) @ simf) > 0
+        if not bool((killed != prev).any()):     # host sync
+            return killed
+
+
+def recover_rounds(prob: RecoveryProblem, target: int = 2**31 - 1, *,
+                   block_size: int = 16, max_candidates: int = 128,
+                   stop_at_target: bool = False, chunk: int = 2048,
+                   use_kernel: bool = False):
+    """Round-based parallel recovery.  Returns (status[m] int8, RoundStats).
+
+    With ``stop_at_target=False`` the result is bit-identical to
+    :func:`recover_serial`.  With ``stop_at_target=True`` rounds stop as
+    soon as the number of recovered edges reaches ``target``.
+    """
+    if use_kernel:
+        raise NotImplementedError(
+            "recover_rounds(use_kernel=True) needs kernel K4, the "
+            "similarity_mark kernel of kernels/similarity.py, which is not "
+            "ported yet; use the default use_kernel=False")
+    m = prob.m
+    K, B = max_candidates, block_size
+    dev = prob.seg.device
+    seg, beta = prob.seg, prob.beta
+    sig_u, sig_v = prob.sig_u, prob.sig_v
+    is_edge = seg >= 0
+    status = torch.where(is_edge, STATUS_OPEN, STATUS_SKIPPED).to(torch.int8)
+    if m % chunk:
+        raise ValueError(f"problem rows {m} are not a multiple of chunk "
+                         f"{chunk}")
+
+    # Loop-invariant tensors: in-segment base offsets and chunk ranges.
+    arange_m = torch.arange(m, dtype=torch.int32, device=dev)
+    seg_ids = torch.where(is_edge, seg, 0).long()
+    first_of_seg = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                              seg[1:] != seg[:-1]]) & is_edge
+    seg_first = scatter_drop(torch.zeros(m, dtype=torch.int64, device=dev),
+                             seg_ids, arange_m.long(), first_of_seg)
+    seg_row0 = seg_first[seg_ids]              # first row of each row's seg
+    chunks = seg.view(-1, chunk)
+    chunk_lo, chunk_hi = chunks[:, 0], chunks.max(dim=1).values
+    chunk_rows = torch.arange(chunk, device=dev)
+    kidx = torch.arange(K, device=dev)
+    later = kidx[None, :] > kidx[:, None]
+
+    tracer = get_tracer()
+    rounds = 0
+    n_cand = torch.zeros((), dtype=torch.int64, device=dev)
+    n_killed = torch.zeros((), dtype=torch.int64, device=dev)
+    while True:
+        # ---- cond, tested on the host every round -------------------------
+        open_left = (status == STATUS_OPEN).any()
+        if stop_at_target:
+            n_rec = (status == STATUS_RECOVERED).sum()
+            go = torch.stack([open_left.long(), n_rec]).tolist()
+            if not (go[0] and go[1] < target):
+                break
+        elif not bool(open_left):
+            break
+        rounds += 1
+
+        # ---- candidates: first B open rows per segment, first K overall ---
+        avail = status == STATUS_OPEN
+        ones = avail.to(torch.int32)
+        cums = torch.cumsum(ones, 0, dtype=torch.int32)
+        excl = cums - ones
+        rank = excl - excl[seg_row0]
+        cand = avail & (rank < B)
+        candi = cand.to(torch.int32)
+        crank = torch.cumsum(candi, 0, dtype=torch.int32) - candi
+        cand = cand & (crank < K)
+        cidx = torch.full((K + 1,), m, dtype=torch.int64, device=dev)
+        cidx = cidx.scatter(0, torch.where(cand, crank, K).long(),
+                            arange_m.long())[:K]
+        cvalid = cidx < m
+        ci = torch.where(cvalid, cidx, 0)
+        csu, csv = sig_u[ci], sig_v[ci]
+        cbeta = torch.where(cvalid, beta[ci], -1)
+        cseg = torch.where(cvalid, seg[ci], -2)
+
+        # ---- in-block order resolution (Lemma 8) --------------------------
+        # Its share of the build is a span of its own; with the tracer on,
+        # the queue drains first so the span times this block's work only.
+        if tracer.enabled and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        with tracer.span("recovery.in_block"):
+            sim = strict_similarity_matrix(csu, csv, cbeta, csu, csv)
+            same = cseg[:, None] == cseg[None, :]
+            sim = sim & same & later & cvalid[:, None] & cvalid[None, :]
+            killed = _resolve_block(sim)
+        recovered_c = cvalid & ~killed
+        new_status = torch.where(recovered_c, STATUS_RECOVERED,
+                                 STATUS_SKIPPED).to(torch.int8)
+        status = scatter_drop(status, cidx, new_status, cvalid)
+
+        # ---- marking pass over the active chunks only ---------------------
+        mark_beta = torch.where(recovered_c, cbeta, -1)   # -1 disables
+        rseg = torch.where(recovered_c, cseg, -3)
+        active = ((rseg[None, :] >= chunk_lo[:, None])
+                  & (rseg[None, :] <= chunk_hi[:, None])).any(dim=1)
+        act = torch.nonzero(active).flatten()             # host sync
+        if act.numel():
+            rows = (act[:, None] * chunk + chunk_rows[None, :]).flatten()
+            for lo in range(0, rows.numel(), _MARK_ROWS):
+                r = rows[lo:lo + _MARK_ROWS]
+                kill = _mark_rows(r, status, seg, sig_u, sig_v, cseg, csu,
+                                  csv, mark_beta, B)
+                status = scatter_drop(status, r, STATUS_SKIPPED, kill)
+
+        n_cand = n_cand + cvalid.sum()
+        n_killed = n_killed + (cvalid & killed).sum()
+    stats = RoundStats(rounds=rounds, candidates=int(n_cand),
+                       killed_in_block=int(n_killed))
+    return status, stats
+
+
+def _mark_rows(rows, status, seg, sig_u, sig_v, cseg, csu, csv, mark_beta,
+               B: int) -> torch.Tensor:
+    """Open rows among ``rows`` that a recovered candidate of their own
+    subtask strictly-similarity-marks.  Candidates are sorted by row, so
+    one subtask's (at most ``B``) candidates sit together in the block."""
+    K = cseg.shape[0]
+    eseg = seg[rows]
+    # valid candidates form a prefix; push the rest past every subtask id
+    # so the search key stays sorted
+    ckey = torch.where(cseg >= 0, cseg, torch.iinfo(torch.int32).max)
+    first = torch.searchsorted(ckey.contiguous(), eseg.contiguous())
+    slot = first[:, None] + torch.arange(B, device=rows.device)[None, :]
+    inside = slot < K
+    slot = torch.where(inside, slot, 0)
+    mine = inside & (ckey[slot] == eseg[:, None])
+    sbeta = torch.where(mine, mark_beta[slot], -1)
+    esu, esv = sig_u[rows], sig_v[rows]
+    su, sv = csu[slot], csv[slot]
+    sim = ((_pair_match(su, esu, sbeta) & _pair_match(sv, esv, sbeta))
+           | (_pair_match(su, esv, sbeta) & _pair_match(sv, esu, sbeta)))
+    return sim.any(dim=1) & (status[rows] == STATUS_OPEN)
+
+
+def select_top(status, score, target):
+    """Keep the ``target`` highest-score recovered edges (deterministic)."""
+    recovered = status == STATUS_RECOVERED
+    neg_inf = torch.tensor(-float("inf"), dtype=score.dtype,
+                           device=score.device)
+    order = torch.argsort(-torch.where(recovered, score, neg_inf),
+                          stable=True)
+    rec_sorted = recovered[order]
+    taken = torch.cumsum(rec_sorted.to(torch.int32), 0)
+    keep_sorted = rec_sorted & (taken <= target)
+    keep = torch.zeros_like(recovered)
+    keep[order] = keep_sorted
+    return keep

@@ -1,0 +1,122 @@
+"""Build and load the hand-written CUDA kernels of ``kernels/csrc``.
+
+The sources compile with ``nvcc`` for ``sm_90a`` (H100) into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs
+at first use, one ``nvcc`` per source started together, and lands in
+``src/repro_torch/_build/<hash>/``, keyed by a hash of the sources and the
+flags, so a changed source rebuilds and an unchanged one loads at once.
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# -fmad=false: no FMA contraction, so each kernel is bitwise equal to its
+# plain PyTorch version (every operation is rounded on its own)
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                     "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "repro_spmv_ell_batched": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_cheby_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                         _F, _F, _P],
+    "repro_restrict_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked on PATH and in CUDA_HOME); "
+                       "the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source (in parallel) and link the shared library;
+    returns its path.  Raises with the compiler's output on failure."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / "librepro_torch_kernels.so"
+    if lib_path.exists():
+        build_info.update(path=str(lib_path), seconds=0.0, cached=True)
+        return lib_path
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        logs, failed = [], []
+        for src, obj, proc in procs:
+            text = proc.communicate()[0].decode(errors="replace")
+            logs.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" +
+                               "\n".join(logs))
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp_lib),
+             *[str(obj) for _, obj, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" +
+                               link.stdout.decode(errors="replace"))
+        os.replace(tmp_lib, lib_path)   # atomic: concurrent builds agree
+    build_info.update(path=str(lib_path),
+                      seconds=time.perf_counter() - t0, cached=False,
+                      log="\n".join(logs))
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise on a nonzero ``cudaGetLastError`` returned by a launch."""
+    if status != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed: cudaError {status}")

@@ -1,0 +1,237 @@
+"""Fused V-cycle kernels for the H100: batched ELL spmv (K1), the fused
+Chebyshev smoother (K2) and the fused restrict+residual (K3).
+
+The port of ``repro.kernels.vcycle_fused``.  Each wrapper launches its
+hand-written CUDA kernel (``kernels/csrc/*.cu``) when its tensors lie on a
+CUDA device, and runs the kernel's plain PyTorch version
+(:mod:`repro_torch.kernels.ref`) when they lie on the CPU.  Nothing else
+decides the route: no environment variable, no check of whether the
+toolchain imports.  On a CUDA tensor the wrapper launches or raises.
+
+Each launch adds one to its kernel's count in :data:`launches`, so a run
+can show that it went through the kernels.
+
+Design notes for the card (the TPU kernels held whole levels in VMEM):
+
+  * K1 streams x through L2; one thread per (row, column).
+  * K2 is one launch per recurrence step, the combines fused into the
+    matvec epilogue, z ping-ponging between two buffers.
+  * K3 walks a CSR of aggregates built once at hierarchy build, so the sum
+    is deterministic without float atomics.
+
+:func:`cheby_coeffs` and :func:`cheby_recurrence` stay the one definition
+of the polynomial; the fused smoother applies the same step coefficients
+(:func:`cheby_step_coeffs`) in the same order.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+
+launches = {"spmv_ell_batched": 0, "cheby_step": 0, "restrict_residual": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def cheby_coeffs(rho: float):
+    """Chebyshev smoother coefficients for eigenvalues of ``D^-1 L`` in
+    ``[lmax/4, lmax]`` with ``lmax = 1.1 * rho``.  Returns
+    ``(theta, delta, sigma)`` — midpoint, half-width and their ratio."""
+    lmax = 1.1 * rho
+    lmin = lmax / 4.0
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    return theta, delta, theta / delta
+
+
+def cheby_step_coeffs(delta: float, sigma: float, degree: int):
+    """``[(c1, c2), ...]`` of the ``degree - 1`` later recurrence steps,
+    computed in Python double: ``c1 = rho_k * rho_prev``,
+    ``c2 = 2 * rho_k / delta``."""
+    out, rho_prev = [], 1.0 / sigma
+    for _ in range(degree - 1):
+        rho_k = 1.0 / (2.0 * sigma - rho_prev)
+        out.append((rho_k * rho_prev, 2.0 * rho_k / delta))
+        rho_prev = rho_k
+    return out
+
+
+def cheby_recurrence(matvec: Callable, inv_d, r, z, *, degree: int,
+                     theta, delta: float, sigma: float):
+    """The degree-``degree`` Chebyshev recurrence for ``L z ~= r`` with
+    Jacobi scaling; ``z=None`` starts from the zero iterate.  ``theta`` may
+    be a 0-dim tensor (a true division on every device)."""
+    res = r if z is None else r - matvec(z)
+    p = inv_d * res / theta
+    z = p if z is None else z + p
+    for c1, c2 in cheby_step_coeffs(delta, sigma, degree):
+        res = r - matvec(z)
+        p = c1 * p + c2 * (inv_d * res)
+        z = z + p
+    return z
+
+
+# ---------------------------------------------------------------------------
+# launch plumbing
+# ---------------------------------------------------------------------------
+
+def _on_cuda(*tensors) -> bool:
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"kernel operands on several devices: {devs}")
+    return next(iter(devs)).type == "cuda"
+
+
+def _require(t, name: str, dtype, ndim: int):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _slabs(idx, val):
+    _require(idx, "idx", torch.int32, 2)
+    _require(val, "val", torch.float32, 2)
+    if idx.shape != val.shape:
+        raise ValueError(f"idx {tuple(idx.shape)} != val {tuple(val.shape)}")
+    return idx.shape
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: batched-RHS ELL spmv
+# ---------------------------------------------------------------------------
+
+def spmv_ell_batched(idx, val, x):
+    """``y[i, j] = sum_l val[i, l] * x[idx[i, l], j]`` for ``x [nx, k]``,
+    ``nx >= n``; ``[n, k]`` out."""
+    if not _on_cuda(idx, val, x):
+        return _ref.spmv_ell_batched_ref(idx, val, x)
+    from repro_torch.kernels._build import check, library
+
+    n, L = _slabs(idx, val)
+    _require(x, "x", torch.float32, 2)
+    if x.shape[0] < n:
+        raise ValueError(f"x has {x.shape[0]} rows, the slab {n}")
+    k = x.shape[1]
+    y = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    check(library().repro_spmv_ell_batched(
+        idx.data_ptr(), val.data_ptr(), x.data_ptr(), y.data_ptr(), n, L, k,
+        _stream()), "spmv_ell_batched")
+    launches["spmv_ell_batched"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K2: fused Chebyshev smoother, one launch per recurrence step
+# ---------------------------------------------------------------------------
+
+def cheby_step(idx, val, inv_d, r, z_prev, p, z_out, *, first: bool,
+               theta: float, c1: float = 0.0, c2: float = 0.0):
+    """One recurrence step: writes ``p`` (in place) and ``z_out``, returns
+    them.  ``z_prev=None`` is the first step from the zero iterate (no
+    matvec)."""
+    if not _on_cuda(idx, val, inv_d, r, z_prev, p, z_out):
+        p_new, z_new = _ref.cheby_step_ref(idx, val, inv_d, r, z_prev, p,
+                                           first=first, theta=theta,
+                                           c1=c1, c2=c2)
+        p.copy_(p_new)
+        z_out.copy_(z_new)
+        return p, z_out
+    from repro_torch.kernels._build import check, library
+
+    n, L = _slabs(idx, val)
+    _require(inv_d, "inv_d", torch.float32, 1)
+    for name, t in (("r", r), ("z_prev", z_prev), ("p", p), ("z_out", z_out)):
+        if t is not None:
+            _require(t, name, torch.float32, 2)
+            if t.shape != r.shape or r.shape[0] != n:
+                raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                                 f"r {tuple(r.shape)} with {n} slab rows")
+    if z_out is z_prev:
+        raise ValueError("z_out must not alias z_prev (rows read z_prev)")
+    check(library().repro_cheby_step(
+        idx.data_ptr(), val.data_ptr(), inv_d.data_ptr(), r.data_ptr(),
+        _ptr(z_prev), p.data_ptr(), z_out.data_ptr(), n, L, r.shape[1],
+        int(first), float(theta), float(c1), float(c2), _stream()),
+        "cheby_step")
+    launches["cheby_step"] += 1
+    return p, z_out
+
+
+def make_fused_chebyshev(idx, val, diag, rho: float, *,
+                         degree: int = 3) -> Callable:
+    """Build ``smooth(r, z=None)``: the degree-``degree`` polynomial as
+    ``degree`` launches of K2 (the first step from zero has no matvec).
+    Coefficients are baked in from the spectral radius estimate ``rho``,
+    exactly as the plain closure does."""
+    theta, delta, sigma = cheby_coeffs(rho)
+    steps = cheby_step_coeffs(delta, sigma, degree)
+    inv_d = 1.0 / diag
+
+    def smooth(r, z=None):
+        p = torch.empty_like(r)
+        cur, nxt = torch.empty_like(r), torch.empty_like(r)
+        cheby_step(idx, val, inv_d, r, z, p, cur, first=True, theta=theta)
+        for c1, c2 in steps:
+            cheby_step(idx, val, inv_d, r, cur, p, nxt, first=False,
+                       theta=theta, c1=c1, c2=c2)
+            cur, nxt = nxt, cur
+        return cur
+
+    return smooth
+
+
+# ---------------------------------------------------------------------------
+# K3: fused restrict + residual
+# ---------------------------------------------------------------------------
+
+def restrict_residual(idx, val, perm, agg_ptr, agg_max: int, r, z):
+    """``rc[c] = sum_{i in aggregate c, ascending} (r - A z)[i]``,
+    ``[n_coarse, k]`` out; the fine residual is never materialized."""
+    if not _on_cuda(idx, val, perm, agg_ptr, r, z):
+        return _ref.restrict_residual_ref(idx, val, perm, agg_ptr, agg_max,
+                                          r, z)
+    from repro_torch.kernels._build import check, library
+
+    n, L = _slabs(idx, val)
+    _require(perm, "perm", torch.int32, 1)
+    _require(agg_ptr, "agg_ptr", torch.int32, 1)
+    _require(r, "r", torch.float32, 2)
+    _require(z, "z", torch.float32, 2)
+    if r.shape != z.shape or r.shape[0] != n or perm.shape[0] != n:
+        raise ValueError("restrict_residual: r, z and perm need the slab's "
+                         f"{n} rows; got {tuple(r.shape)}, {tuple(z.shape)},"
+                         f" {tuple(perm.shape)}")
+    n_coarse, k = agg_ptr.shape[0] - 1, r.shape[1]
+    rc = torch.empty((n_coarse, k), dtype=torch.float32, device=r.device)
+    check(library().repro_restrict_residual(
+        idx.data_ptr(), val.data_ptr(), perm.data_ptr(), agg_ptr.data_ptr(),
+        r.data_ptr(), z.data_ptr(), rc.data_ptr(), n_coarse, L, k,
+        _stream()), "restrict_residual")
+    launches["restrict_residual"] += 1
+    return rc
+
+
+def make_fused_restrict_residual(idx, val, perm, agg_ptr,
+                                 agg_max: int) -> Callable:
+    """Build ``restrict(r, z) -> rc [n_coarse, k]`` over one level."""
+    def restrict(r, z):
+        return restrict_residual(idx, val, perm, agg_ptr, agg_max, r, z)
+
+    return restrict

@@ -1,0 +1,187 @@
+"""The port's kernels K1-K3 (repro_torch.kernels) against the JAX package.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; these are
+held against the reference's jnp path and against its Pallas kernels in
+interpret mode, with rtol 1e-5 and atol 1e-5 * max|input| (the two
+frameworks sum in different orders).  The ELL slab layout must be
+bit-identical.  The CUDA kernels themselves are tested on the card by
+``tests/test_torch_gpu.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import graph as jgraph  # noqa: E402
+from repro.core.device_graph import DeviceGraph as JDeviceGraph  # noqa: E402
+from repro.kernels import vcycle_fused as jvf  # noqa: E402
+from repro.kernels.spmv_ell import to_ell as jto_ell  # noqa: E402
+from repro.pipeline import pdgrass_config as jconfig  # noqa: E402
+from repro.solver import device_pcg as jpcg  # noqa: E402
+from repro.solver.hierarchy import build_hierarchy as jbuild  # noqa: E402
+from repro_torch.core import graph as tgraph  # noqa: E402
+from repro_torch.core.device_graph import DeviceGraph  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import vcycle_fused as tvf  # noqa: E402
+from repro_torch.kernels.spmv_ell import to_ell  # noqa: E402
+from repro_torch.solver.hierarchy import aggregate_csr  # noqa: E402
+
+def _suites():
+    j, t = dict(jgraph.suite("tiny")), dict(tgraph.suite("tiny"))
+    j["mesh12"], t["mesh12"] = jgraph.mesh2d(12, 12), tgraph.mesh2d(12, 12)
+    return j, t
+
+
+JG, TG = _suites()
+
+
+def _close(got, want, *inputs):
+    scale = max(float(np.abs(np.asarray(a)).max()) for a in inputs)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
+def _rhs(n, k, seed):
+    r = np.random.default_rng(seed).standard_normal((n, k)).astype(np.float32)
+    return r - r.mean(axis=0)
+
+
+@pytest.fixture(scope="module")
+def level0():
+    """Level 0 of the reference's mesh12 hierarchy: slabs, diag, agg."""
+    h = jbuild(JG["mesh12"], config=jconfig(alpha=0.05, chunk=256))
+    lev = h.levels[0]
+    return {k: np.array(getattr(lev, k)) for k in
+            ("idx", "val", "diag", "agg")} | {"n_coarse": lev.n_coarse}
+
+
+# -- ELL layout ----------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["ba", "star", "mesh12"])
+def test_to_ell_host_and_device_bit_identical(name):
+    ji, jv = jto_ell(JG[name])
+    ti, tv = to_ell(TG[name], device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    jdg = JDeviceGraph.from_graph(JG[name])
+    tdg = DeviceGraph.from_graph(TG[name], device="cpu")
+    np.testing.assert_array_equal(tdg.diag.numpy(), np.asarray(jdg.diag))
+    for a, b in zip(tdg.to_ell(), jdg.to_ell()):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    x = _rhs(TG[name].n, 3, seed=1)
+    _close(tdg.laplacian_matvec(torch.as_tensor(x)),
+           jdg.laplacian_matvec(jnp.asarray(x)), x, tv.numpy())
+
+
+# -- K1 ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [31, 100, 257])
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+def test_k1_plain_matches_reference_edge_sizes(n, k):
+    """Random slabs, x with more rows than the slab (nx > n)."""
+    rng = np.random.default_rng(n * 17 + k)
+    L, nx = 5, n + 9
+    idx = rng.integers(0, nx, (n, L)).astype(np.int32)
+    val = rng.standard_normal((n, L)).astype(np.float32)
+    x = rng.standard_normal((nx, k)).astype(np.float32)
+    got = tvf.spmv_ell_batched(torch.as_tensor(idx), torch.as_tensor(val),
+                               torch.as_tensor(x))
+    assert got.shape == (n, k)
+    want_ref = jnp.einsum("nl,nlk->nk", jnp.asarray(val), jnp.asarray(x)[idx])
+    _close(got, want_ref, val, x)
+    if k in (1, 8):  # the Pallas kernel itself, in interpret mode
+        want_k = jvf.spmv_ell_batched(jnp.asarray(idx), jnp.asarray(val),
+                                      jnp.asarray(x), tile_n=32,
+                                      interpret=True)
+        _close(got, want_k, val, x)
+
+
+def test_k1_on_cpu_runs_plain_and_counts_nothing():
+    before = dict(tvf.launches)
+    idx, val = to_ell(TG["mesh12"], device="cpu")
+    x = torch.as_tensor(_rhs(TG["mesh12"].n, 4, seed=2))
+    y = tvf.spmv_ell_batched(idx, val, x)
+    assert y.device.type == "cpu"
+    assert torch.equal(y, kref.spmv_ell_batched_ref(idx, val, x))
+    assert tvf.launches == before
+
+
+# -- K2 ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("degree", [2, 3])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k2_smoother_matches_reference(level0, degree, warm):
+    lv = level0
+    idx, val, diag = (jnp.asarray(lv[k]) for k in ("idx", "val", "diag"))
+    rho = jpcg.estimate_dinv_rho(jpcg.make_matvec(idx, val, "ref"), diag)
+    r = _rhs(lv["idx"].shape[0], 4, seed=degree)
+    z = _rhs(lv["idx"].shape[0], 4, seed=degree + 10) * 0.1 if warm else None
+    jz = None if z is None else jnp.asarray(z)
+    want_ref = jpcg.make_chebyshev_smoother(
+        jpcg.make_matvec(idx, val, "ref"), diag, rho, degree=degree)(
+        jnp.asarray(r), jz)
+    want_k = jvf.make_fused_chebyshev(idx, val, diag, rho, degree=degree,
+                                      interpret=True)(jnp.asarray(r), jz)
+    ts = tvf.make_fused_chebyshev(*(torch.as_tensor(lv[k]) for k in
+                                    ("idx", "val", "diag")), rho,
+                                  degree=degree)
+    got = ts(torch.as_tensor(r), None if z is None else torch.as_tensor(z))
+    _close(got, want_ref, r, lv["val"])
+    _close(got, want_k, r, lv["val"])
+
+
+@pytest.mark.parametrize("first,warm", [(True, False), (True, True),
+                                        (False, True)])
+def test_k2_step_composes_the_recurrence(first, warm):
+    """One step through the wrapper equals the plain step (CPU route)."""
+    rng = np.random.default_rng(5)
+    n, L, k = 100, 4, 3
+    idx = torch.as_tensor(rng.integers(0, n, (n, L)).astype(np.int32))
+    val = torch.as_tensor(rng.standard_normal((n, L)).astype(np.float32))
+    inv_d = torch.as_tensor(rng.random(n).astype(np.float32) + 0.5)
+    r, z, p = (torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32))
+               for _ in range(3))
+    zp = z if warm else None
+    kw = dict(first=first, theta=1.3, c1=0.7, c2=0.4)
+    pw, zw = tvf.cheby_step(idx, val, inv_d, r, zp, p.clone(),
+                            torch.empty_like(r), **kw)
+    pr, zr = kref.cheby_step_ref(idx, val, inv_d, r, zp, p.clone(), **kw)
+    assert torch.equal(pw, pr) and torch.equal(zw, zr)
+
+
+# -- K3 ------------------------------------------------------------------------
+
+def test_k3_restrict_matches_reference(level0):
+    lv = level0
+    n = lv["idx"].shape[0]
+    r, z = _rhs(n, 4, seed=3), _rhs(n, 4, seed=4) * 0.1
+    idx, val, agg = (jnp.asarray(lv[k]) for k in ("idx", "val", "agg"))
+    mv = jpcg.make_matvec(idx, val, "ref")
+    want_ref = jax.ops.segment_sum(jnp.asarray(r) - mv(jnp.asarray(z)), agg,
+                                   num_segments=lv["n_coarse"])
+    want_k = jvf.make_fused_restrict_residual(
+        idx, val, agg, lv["n_coarse"], interpret=True)(jnp.asarray(r),
+                                                        jnp.asarray(z))
+    perm, ptr, amax = aggregate_csr(torch.as_tensor(lv["agg"]),
+                                    lv["n_coarse"])
+    got = tvf.restrict_residual(torch.as_tensor(lv["idx"]),
+                                torch.as_tensor(lv["val"]), perm, ptr, amax,
+                                torch.as_tensor(r), torch.as_tensor(z))
+    _close(got, want_ref, r, lv["val"])
+    _close(got, want_k, r, lv["val"])
+
+
+def test_aggregate_csr_lists_members_ascending():
+    agg = torch.as_tensor(np.array([2, 0, 1, 0, 2, 2, 1], np.int32))
+    perm, ptr, amax = aggregate_csr(agg, 3)
+    assert ptr.tolist() == [0, 2, 4, 7]
+    assert perm.tolist() == [1, 3, 2, 6, 0, 4, 5]
+    assert amax == 3
+
+
+def test_cheby_coeffs_match_reference():
+    for rho in (0.3, 1.0, 1.9481308):
+        assert tvf.cheby_coeffs(rho) == jvf.cheby_coeffs(rho)
