@@ -5,12 +5,13 @@
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-  1. build the CUDA kernels K1-K3 from ``src/repro_torch/kernels/csrc``;
+  1. build the CUDA kernels K1-K5 from ``src/repro_torch/kernels/csrc``;
   2. hold each kernel against its plain PyTorch version on the card at
      edge sizes (n = 31, 100, 257; k = 1, 3, 8, 16; x with more rows than
      the slab for K1): K1 bitwise, K2 and K3 within rtol 1e-5 and
      atol 1e-5 * max|input| (the kernels round every operation on its own,
-     so they are expected bitwise too);
+     so they are expected bitwise too); K4 bitwise on the reference test's
+     (K, m, c1) cases and 12 seeded ones, K5 bitwise at n = 31, 100, 257;
   3. the main path: ``build_hierarchy`` on ``mesh2d(1024, 1024, seed=0)``
      (n = 1,048,576, m = 3,141,633; the scale of the paper's NACA0015 FEM
      mesh), then ``make_solver(matvec_impl="fused")`` and one solve of 8
@@ -23,8 +24,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   4. the same solve through the plain versions (``matvec_impl="ref"``) on
      the same hierarchy (iterations within +-1 per column, re-based x
      allclose) and a second fused solve (bitwise equal x and iterations);
-  5. each kernel timed at the main path's shapes beside its plain version,
-     its byte/operation bound and, for K1, ``torch.sparse.mm`` on a CSR copy.
+  5. the K4 path: ``recover_rounds(use_kernel=True)`` on the main graph's
+     level-0 problem (stop at the target ceil(0.05 n)) against the default
+     engine (status bitwise, same rounds, one K4 launch a round), and on
+     mesh2d(128, 128) without a target against the default engine and
+     ``recover_serial``;
+  6. the service path: ``SolverService`` on the main graph, 8 right-hand
+     sides as requests of 1, 3 and 4 columns (tol 1e-3, maxiter 2000): a
+     cold flush (one group, cache ``miss``, every column's f64 relres <=
+     tol), a warm flush (``mem``), a restarted service on the same disk
+     tier (``disk``), all bitwise equal; then a ``matvec_impl="kernel"``
+     service (K5) on one 2-column request, bitwise equal to the fused one;
+  7. each kernel timed at the main path's shapes beside its plain version,
+     its byte/operation bound and, for K1 and K5, ``torch.sparse.mm`` on a
+     CSR copy of the operator.
+
+Each path's launch counts are set to 0 just before it and read just after:
+K1-K3 over phase 3, K4 over phase 5's kernel engine, K5 over phase 6's
+kernel-route solve.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -42,6 +59,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+SLEEP_CYCLES_PER_S = 2e9      # at most the H100's SM clock, so sleeps run long
 MAIN_ROWS = 1024
 TOL, MAXITER, K = 1e-3, 2000, 8
 
@@ -51,12 +69,24 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(torch, fn, reps: int = 20) -> float:
-    """Mean device ms per call over ``reps`` calls, after a warm-up."""
+def time_ms(torch, fn, reps: int = 20, queued: bool = True) -> float:
+    """Mean device ms per call over ``reps`` calls, after a warm-up.
+
+    With ``queued`` the timed calls are queued behind a device-side sleep
+    longer than their host dispatch, so the events time the device's work
+    back to back and not the Python wrappers' dispatch; without it they
+    time whichever of the two is slower."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0   # one call, dispatch and device
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(int(min(2 * reps * call_s, 0.5)
+                              * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -126,6 +156,317 @@ def edge_checks(torch, vf, ref):
     return n_checked
 
 
+def sim_problem(np, torch, rng, K, m, c1, n_seg=5, sort=False):
+    """K4 inputs drawn as the reference's kernel test draws them;
+    ``sort`` orders the rows by subtask, as the round engine's are, so
+    that each thread block sees a narrow range of subtasks, and gives a
+    fifth of the candidates the padding rows' subtask id -1."""
+    sig = lambda r: rng.integers(0, 30, size=(r, c1)).astype(np.int32)
+    csu, csv = sig(K), sig(K)
+    esu, esv = sig(m), sig(m)
+    cbeta = rng.integers(-1, c1, size=K).astype(np.int32)
+    cseg = rng.integers(0, n_seg, size=K).astype(np.int32)
+    eseg = rng.integers(0, n_seg, size=m).astype(np.int32)
+    eseg[rng.random(m) < 0.1] = -1  # padding rows
+    if sort:
+        eseg.sort()
+        cseg[rng.random(K) < 0.2] = -1  # candidates that mark padding rows
+    return [torch.as_tensor(a, device="cuda")
+            for a in (csu, csv, cbeta, cseg, esu, esv, eseg)]
+
+
+def k45_edge_checks(np, torch, kops, ref):
+    """K4 and K5 against their plain versions at the edge sizes, bitwise."""
+    cases = [(K * m, K, m, c1) for K, m, c1 in
+             ((8, 64, 9), (16, 512, 9), (128, 1024, 9), (4, 100, 5),
+              (32, 96, 13))]
+    cases += [(1000 + i, K, m, c1) for i, (K, m, c1) in enumerate(
+        (K, m, c1) for K in (1, 8, 33) for m in (32, 200) for c1 in (3, 9))]
+    cases = [case + (5, False) for case in cases]
+    # rows sorted by subtask, many subtasks, and K over one 128-tile
+    cases += [(2000 + K, K, 5000, 9, 60, True) for K in (128, 300)]
+    for seed, K, m, c1, n_seg, sort in cases:
+        args = sim_problem(np, torch, np.random.default_rng(seed), K, m, c1,
+                           n_seg, sort)
+        if not torch.equal(kops.similarity_mark(*args),
+                           ref.similarity_mark_ref(*args)):
+            fail(f"K4 not bitwise equal at K={K} m={m} c1={c1} "
+                 f"n_seg={n_seg} sort={sort}")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for n in (31, 100, 257):
+        nx = n + 7
+        idx = torch.randint(0, nx, (n, 5), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        val = torch.randn((n, 5), generator=gen, device="cuda")
+        x = torch.randn((nx,), generator=gen, device="cuda")
+        y = kops.spmv(idx, val, x)
+        if not (torch.equal(y, ref.spmv_ell_ref(idx, val, x)) and torch.equal(
+                y, kops.spmv_batched(idx, val, x[:, None].contiguous())[:, 0])):
+            fail(f"K5 not bitwise equal to its plain version (or to K1) at "
+                 f"n={n}")
+    torch.cuda.synchronize()
+    return len(cases)
+
+
+def k4_path(np, torch, g, kops):
+    """The K4 path: the round engine's kernel route against its default
+    route at full size, and exhaustively (no target) on mesh2d(128, 128)
+    against the default route and the serial oracle.  Returns the K4
+    launch count of the full-size kernel run and the first launch's
+    inputs."""
+    from repro_torch.core import recovery as rec
+    from repro_torch.core.graph import mesh2d
+    from repro_torch.pipeline import Pipeline, pdgrass_config
+
+    cfg = pdgrass_config(alpha=0.05, chunk=512)
+    t0 = time.perf_counter()
+    prob = Pipeline(cfg).prepare(g, device="cuda").problem
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    target = int(np.ceil(0.05 * g.n))
+
+    def engine(use_kernel):
+        t0 = time.perf_counter()
+        out = rec.recover_rounds(prob, target, stop_at_target=True,
+                                 chunk=512, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # record the inputs of the first K4 launch (for the timing phase)
+    first = []
+    mark = kops.similarity_mark
+
+    def recording(*args, **kw):
+        if not first:
+            first.append([a.clone() for a in args])
+        return mark(*args, **kw)
+
+    # engines in the order default, K4, K4, default, so that neither
+    # engine always runs first; launches are counted over the first K4 run
+    (st_d, stats_d), d1_s = engine(False)
+    kops.reset_launches()
+    kops.similarity_mark = recording
+    try:
+        (st_k, stats_k), k1_s = engine(True)
+    finally:
+        kops.similarity_mark = mark
+    launches = kops.launch_counts()["similarity_mark"]
+    (st_k2, stats_k2), k2_s = engine(True)
+    (st_d2, stats_d2), d2_s = engine(False)
+    print(f"K4 path: level-0 problem m={prob.m} (prepare {prep_s:.3f} s), "
+          f"target {target}; default engine {d1_s:.3f} s and {d2_s:.3f} s, "
+          f"{stats_d.rounds} rounds; K4 engine {k1_s:.3f} s and {k2_s:.3f} s, "
+          f"{stats_k.rounds} rounds, {launches} K4 launches, recovered "
+          f"{int((st_k == rec.STATUS_RECOVERED).sum())}; default/K4 "
+          f"seconds {(d1_s + d2_s) / (k1_s + k2_s):.3f}", flush=True)
+    if not all(torch.equal(st, st_d) for st in (st_k, st_k2, st_d2)):
+        fail("K4 engine status differs from the default engine's")
+    if not stats_k == stats_k2 == stats_d == stats_d2:
+        fail(f"K4 engine stats {stats_k} != default {stats_d}")
+    if launches != stats_k.rounds:
+        fail(f"K4 launched {launches} times over {stats_k.rounds} rounds")
+
+    small = mesh2d(128, 128, seed=0)
+    sprob = Pipeline(cfg).prepare(small, device="cuda").problem
+    t0 = time.perf_counter()
+    s_d, _ = rec.recover_rounds(sprob, chunk=512)
+    torch.cuda.synchronize()
+    sd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_k, sstats = rec.recover_rounds(sprob, chunk=512, use_kernel=True)
+    torch.cuda.synchronize()
+    sk_s = time.perf_counter() - t0
+    s_s = rec.recover_serial(sprob)
+    print(f"K4 path, mesh2d(128, 128) without a target: m={sprob.m}, "
+          f"{sstats.rounds} rounds; default {sd_s:.3f} s, K4 {sk_s:.3f} s",
+          flush=True)
+    if not (torch.equal(s_k, s_d)
+            and np.array_equal(s_k.cpu().numpy(), s_s)):
+        fail("mesh2d(128, 128): the K4 engine, the default engine and "
+             "recover_serial disagree")
+    return launches, first[0]
+
+
+def service_path(np, torch, g, b, kops):
+    """The service path: cold, warm and restarted flushes bitwise equal,
+    then the K5 route against the fused route.  Returns the K5 launch
+    count of the kernel-route solve."""
+    import tempfile
+
+    from repro_torch.pipeline import pdgrass_config
+    from repro_torch.solver import SolveRequest, SolverService
+
+    cfg = pdgrass_config(alpha=0.05, chunk=512)
+    splits = [(0, 1), (1, 4), (4, 8)]          # requests of 1, 3, 4 columns
+
+    def flush(svc, h, label):
+        tickets = [svc.submit(SolveRequest(graph=h, b=b[:, lo:hi], tol=TOL,
+                                           maxiter=MAXITER))
+                   for lo, hi in splits]
+        groups = svc.stats()["scheduler"]["groups"]
+        t0 = time.perf_counter()
+        out = svc.flush()
+        wall_s = time.perf_counter() - t0
+        rs = [t.result() for t in tickets]     # raises a group's failure
+        if set(out) != set(tickets):
+            fail(f"service {label}: the flush resolved {len(out)} of "
+                 f"{len(tickets)} tickets")
+        x = np.concatenate([r.x for r in rs], axis=1)
+        iters = np.concatenate([r.iters for r in rs])
+        relres = np.concatenate([r.relres for r in rs])
+        print(f"service {label}: cache {rs[0].cache}, groups "
+              f"{svc.stats()['scheduler']['groups'] - groups}, setup "
+              f"{rs[0].setup_ms:.2f} ms, solve {rs[0].solve_ms:.2f} ms, "
+              f"flush {wall_s:.3f} s, refinements {rs[0].refinements}, "
+              f"iters {iters.tolist()}, f64 relres "
+              f"{[f'{v:.3e}' for v in relres]}", flush=True)
+        if len({r.cache for r in rs}) != 1:
+            fail(f"service {label}: requests of one group saw different "
+                 f"cache sources")
+        if not (np.all(relres <= TOL) and all(r.converged for r in rs)):
+            fail(f"service {label}: relres {relres.tolist()} above {TOL}")
+        if x.shape != (g.n, K) or not np.isfinite(x).all():
+            fail(f"service {label}: x is not finite of shape ({g.n}, {K})")
+        return rs[0].cache, x, iters, svc.stats()["scheduler"]["groups"] \
+            - groups
+
+    with tempfile.TemporaryDirectory() as disk:
+        svc = SolverService(pipeline=cfg, coarse_n=64, disk_dir=disk)
+        h = svc.register(g)
+        cold = flush(svc, h, "cold flush")
+        if cold[0] != "miss" or cold[3] != 1:
+            fail(f"cold flush: cache {cold[0]}, {cold[3]} groups; want a "
+                 f"miss in one group")
+        warm = flush(svc, h, "warm flush")
+        restart = SolverService(pipeline=cfg, coarse_n=64, disk_dir=disk)
+        again = flush(restart, restart.store.get(h.fingerprint), "restart")
+        for label, run, source in (("warm flush", warm, "mem"),
+                                   ("restart", again, "disk")):
+            if run[0] != source:
+                fail(f"{label}: cache {run[0]}, want {source}")
+            if not (np.array_equal(run[1], cold[1])
+                    and np.array_equal(run[2], cold[2])):
+                fail(f"{label}: x or iterations differ from the cold flush")
+        print(f"service stats()['cache']: {json.dumps(svc.stats()['cache'])}"
+              f"; restarted: {json.dumps(restart.stats()['cache'])}",
+              flush=True)
+        del restart
+
+        # the K5 route: one 2-column request, against the fused service
+        kern = SolverService(pipeline=cfg, coarse_n=64, matvec_impl="kernel",
+                             store=svc.store)
+        req = dict(graph=h, b=b[:, :2], tol=TOL, maxiter=MAXITER)
+        kern.warmup(h)                       # the build is not the K5 path
+        kops.reset_launches()
+        t0 = time.perf_counter()
+        rk = kern.solve(**req)
+        torch.cuda.synchronize()
+        kern_s = time.perf_counter() - t0
+        launches = kops.launch_counts()["spmv_ell"]
+        rf = svc.solve(**req)
+        print(f"service K5 route: {kern_s:.3f} s (solve {rk.solve_ms:.2f} "
+              f"ms), iters {rk.iters.tolist()}, {launches} K5 launches; "
+              f"fused route solve {rf.solve_ms:.2f} ms, iters "
+              f"{rf.iters.tolist()}", flush=True)
+        if launches <= 0:
+            fail("the kernel-route service did not launch K5")
+        if not (np.array_equal(rk.x, rf.x)
+                and np.array_equal(rk.iters, rf.iters)):
+            fail("the K5 route's x or iterations differ from the fused "
+                 "route")
+    return launches
+
+
+def ell_to_csr(torch, idx, val):
+    """The ELL operator as a valid CSR (sorted, unique columns per row; the
+    ELL padding entries are zeros on the diagonal and merge into it)."""
+    n, L = idx.shape
+    rows = torch.arange(n, device="cuda").repeat_interleave(L)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, idx.flatten().long()]), val.flatten(),
+            (n, n), check_invariants=True).coalesce().to_sparse_csr()
+
+
+def k45_records(np, torch, kops, ref, k4_args, k4_launches, idx, val,
+                k5_launches):
+    """K4 on the inputs of the K4 path's first launch and K5 on the main
+    graph's operator: error against the plain version, device ms beside
+    the plain version's, the bound and (K5) ``torch.sparse.mm``."""
+    csu, csv, cbeta, cseg, esu, esv, eseg = k4_args
+    K, c1 = csu.shape
+    m = esu.shape[0]
+    got = kops.similarity_mark(*k4_args)
+    want = ref.similarity_mark_ref(*k4_args)
+    if not torch.equal(got, want):
+        fail("K4 is not bitwise equal to its plain version at the K4 "
+             "path's shape")
+    err4 = float((got.int() - want.int()).abs().max())
+    # bytes: every row's subtask id read and its output byte written, the
+    # candidates read once, and the two signatures of only those rows that
+    # a recovered candidate (cbeta >= 0) of their own subtask could mark:
+    # no other row's result depends on its signatures.  Operations: the 4
+    # (c1)^2-grid compares, pairs with a + b <= min(beta, c1 - 1), of
+    # every (row, same-subtask candidate) pair of this run's data
+    live_segs = torch.unique(cseg[cbeta >= 0])
+    sig_rows = int(torch.isin(eseg, live_segs).sum())
+    nbytes = m * (4 + 1) + sig_rows * 2 * c1 * 4 + K * (2 * c1 * 4 + 8)
+    a = torch.arange(c1, device="cuda")
+    apb = a[:, None] + a[None, :]
+    pairs = ((apb[None] <= torch.clamp(cbeta, max=c1 - 1)[:, None, None])
+             .flatten(1).sum(1))                       # [K], 0 if beta < 0
+    lo = int(torch.minimum(eseg.min(), cseg.min()))
+    seg_rows = torch.bincount((eseg - lo).long(),
+                              minlength=int(cseg.max()) - lo + 1)
+    rows_k = seg_rows[(cseg - lo).long()]              # rows of k's subtask
+    ops = 4.0 * float((rows_k * pairs).sum())
+    bms, by = bound_ms(nbytes, ops)
+    rec4 = dict(
+        name="similarity_mark", route="cuda",
+        source="src/repro_torch/kernels/csrc/similarity_mark.cu",
+        replaces="src/repro/kernels/similarity.py:72",
+        launches=k4_launches, max_abs_err=err4,
+        ms=time_ms(torch, lambda: kops.similarity_mark(*k4_args)),
+        plain_ms=time_ms(torch, lambda: ref.similarity_mark_ref(*k4_args),
+                         reps=3),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    host4 = time_ms(torch, lambda: kops.similarity_mark(*k4_args),
+                    queued=False)
+    print(f"K4 shapes: K={K} m={m} c1={c1}; {int((cbeta >= 0).sum())} "
+          f"recovered candidates, {sig_rows} rows in their subtasks, "
+          f"{float((rows_k * pairs).sum()):.0f} (row, candidate, pair) "
+          f"cells; {nbytes} bytes; unqueued (host dispatch included) "
+          f"{host4:.4f} ms a call", flush=True)
+
+    n, L = idx.shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((n,), generator=gen, device="cuda")
+    y_k = kops.spmv(idx, val, x)
+    y_r = ref.spmv_ell_ref(idx, val, x)
+    if not (torch.equal(y_k, y_r) and torch.equal(
+            y_k, kops.spmv_batched(idx, val, x[:, None].contiguous())[:, 0])):
+        fail("K5 is not bitwise equal to its plain version (or to K1) at the "
+             "main path's shape")
+    err5 = float((y_k - y_r).abs().max())
+    A = ell_to_csr(torch, idx, val)
+    x1 = x[:, None].contiguous()
+    bms, by = bound_ms(n * L * 8 + n * 4 * 2, 2.0 * n * L)
+    rec5 = dict(
+        name="spmv_ell", route="cuda",
+        source="src/repro_torch/kernels/csrc/spmv_ell.cu",
+        replaces="src/repro/kernels/spmv_ell.py:35",
+        launches=k5_launches, max_abs_err=err5,
+        ms=time_ms(torch, lambda: kops.spmv(idx, val, x)),
+        plain_ms=time_ms(torch, lambda: ref.spmv_ell_ref(idx, val, x)),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.sparse.mm(A, x1)))
+    print(f"K5 unqueued (host dispatch included): "
+          f"{time_ms(torch, lambda: kops.spmv(idx, val, x), queued=False):.4f}"
+          f" ms a call", flush=True)
+    return [rec4, rec5]
+
+
 def kernel_records(torch, vf, ref, hier, idx, val, counts):
     """Each kernel at the main path's shapes: error against its plain
     version, device ms beside the plain version's, its bound and (K1) the
@@ -149,14 +490,7 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
     if not torch.equal(y_k, y_r):
         fail(f"K1 is not bitwise equal to its plain version at the main "
              f"path's shape (max abs err {err1:.3e})")
-    # the same operator as a valid CSR (sorted, unique columns per row; the
-    # ELL padding entries are zeros on the diagonal and merge into it)
-    rows = torch.arange(tn, device="cuda").repeat_interleave(tL)
-    with warnings.catch_warnings():  # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        A = torch.sparse_coo_tensor(
-            torch.stack([rows, idx.flatten().long()]), val.flatten(),
-            (tn, tn), check_invariants=True).coalesce().to_sparse_csr()
+    A = ell_to_csr(torch, idx, val)
     nbytes = tn * tL * 8 + tn * K * 4 * 2
     bms, by = bound_ms(nbytes, 2.0 * tn * tL * K)
     records.append(dict(
@@ -230,6 +564,7 @@ def main() -> int:
     try:
         from repro_torch.core.graph import mesh2d
         from repro_torch.kernels import _build, ref
+        from repro_torch.kernels import ops as kops
         from repro_torch.kernels import vcycle_fused as vf
         from repro_torch.obs import get_tracer
         from repro_torch.solver import (build_hierarchy, ell_laplacian,
@@ -249,6 +584,16 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_phase, 3)
+        t_phase = now
+        print(f"phase {name}: {phase_s[name]:.3f} s", flush=True)
+
     # ---- phase 1: build -----------------------------------------------------
     t0 = time.perf_counter()
     _build.library()
@@ -260,9 +605,14 @@ def main() -> int:
             print(f"  {line.strip()}")
 
     # ---- phase 2: kernels against their plain versions at edge sizes ------
+    phase_done("build")
     n_checked = edge_checks(torch, vf, ref)
     print(f"edge sizes: {n_checked} (n, k) cases, K1 bitwise, K2/K3 "
           f"allclose", flush=True)
+    n_k4 = k45_edge_checks(np, torch, kops, ref)
+    print(f"edge sizes: {n_k4} K4 cases bitwise, K5 bitwise at n = 31, 100, "
+          f"257", flush=True)
+    phase_done("edge_checks")
 
     # ---- phase 3: the main path -----------------------------------------
     t0 = time.perf_counter()
@@ -271,7 +621,7 @@ def main() -> int:
           f"({time.perf_counter() - t0:.2f} s on the host)", flush=True)
     b = np.random.default_rng(1).standard_normal((g.n, K)).astype(np.float32)
     # the main path, untraced: launch counts are read over exactly this run
-    vf.reset_launches()
+    kops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hier = build_hierarchy(g, alpha=0.05, chunk=512, contraction="device",
@@ -288,7 +638,10 @@ def main() -> int:
     res = solver(b_dev, tol=TOL, maxiter=MAXITER)
     torch.cuda.synchronize()
     solve_ms = (time.perf_counter() - t0) * 1e3
-    counts = dict(vf.launches)
+    # the kernels the main path runs (K4 and K5 have paths of their own)
+    counts = {name: n for name, n in kops.launch_counts().items()
+              if name in ("spmv_ell_batched", "cheby_step",
+                          "restrict_residual")}
 
     # a second, traced build gives the per-stage seconds
     tracer = get_tracer()
@@ -323,7 +676,7 @@ def main() -> int:
         if c <= 0:
             fail(f"kernel {name} was not launched on the main path")
 
-    # ---- phase 4: plain path on the same hierarchy; repeat run ------------
+    # ---- phase 4: plain path on the same hierarchy; repeat run ----------
     solver_ref = make_solver(idx, val, hier, matvec_impl="ref",
                              device="cuda")
     if solver_ref.msolve.rhos != solver.msolve.rhos:
@@ -348,8 +701,23 @@ def main() -> int:
         fail("a second fused solve is not bitwise equal to the first")
     print("second fused solve: bitwise equal x and iters", flush=True)
 
-    # ---- phase 5: kernels at the main path's shapes ----------------------
+    phase_done("main_path")
+
+    # ---- phase 5: the K4 path ------------------------------------------
+    k4_launches, k4_args = k4_path(np, torch, g, kops)
+    phase_done("k4_path")
+
+    # ---- phase 6: the service path, and its K5 route -------------------
+    k5_launches = service_path(np, torch, g, b, kops)
+    phase_done("service_path")
+
+    # ---- phase 7: kernels at the main path's shapes ----------------------
     records = kernel_records(torch, vf, ref, hier, idx, val, counts)
+    records += k45_records(np, torch, kops, ref, k4_args, k4_launches, idx,
+                           val, k5_launches)
+    phase_done("kernel_timing")
+    print(f"phase seconds: {json.dumps(phase_s)}, total "
+          f"{sum(phase_s.values()):.3f} s", flush=True)
 
     print(f"nvidia-smi: {card}")
     print(json.dumps({"kernels": records}))

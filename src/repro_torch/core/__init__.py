@@ -4,6 +4,8 @@
     DeviceGraph                        (repro_torch.core.device_graph)
     graph_ops primitives               (repro_torch.core.graph_ops)
     Prepared, Sparsifier, prepare, pdgrass (repro_torch.core.sparsify)
+    fegrass                            (repro_torch.core.fegrass)  baseline
+    pcg_host, pcg_torch, quality_iters (repro_torch.core.pcg)
 """
 from repro_torch.core.graph import (Graph, build_graph, grid2d, mesh2d,
                                     barabasi_albert, watts_strogatz,
@@ -14,6 +16,8 @@ from repro_torch.core.graph_ops import (coalesce_edges, compact_labels,
                                         propose_accept_matching,
                                         segment_argmax)
 from repro_torch.core.sparsify import Prepared, Sparsifier, prepare, pdgrass
+from repro_torch.core.fegrass import fegrass
+from repro_torch.core.pcg import pcg_host, pcg_torch, quality_iters
 
 __all__ = [
     "Graph", "DeviceGraph", "build_graph", "grid2d", "mesh2d",
@@ -21,5 +25,6 @@ __all__ = [
     "suite",
     "segment_argmax", "handshake", "propose_accept_matching",
     "pointer_jump", "compact_labels", "coalesce_edges",
-    "Prepared", "Sparsifier", "prepare", "pdgrass",
+    "Prepared", "Sparsifier", "prepare", "pdgrass", "fegrass",
+    "pcg_host", "pcg_torch", "quality_iters",
 ]

@@ -60,9 +60,9 @@ class DeviceGraph:
             src_h, dst_h, w_h = graph.src, graph.dst, graph.weight
         return cls.from_arrays(
             graph.n,
-            torch.as_tensor(np.asarray(src_h, np.int32), device=device),
-            torch.as_tensor(np.asarray(dst_h, np.int32), device=device),
-            torch.as_tensor(np.asarray(w_h, np.float32), device=device))
+            torch.tensor(np.asarray(src_h, np.int32), device=device),
+            torch.tensor(np.asarray(dst_h, np.int32), device=device),
+            torch.tensor(np.asarray(w_h, np.float32), device=device))
 
     @classmethod
     def from_arrays(cls, n: int, src, dst, weight) -> "DeviceGraph":

@@ -28,7 +28,9 @@ Where the port departs in form from the reference (never in result):
     ``lax.cond`` per chunk) computes the active-chunk mask on the device,
     takes its indices with one host sync per round and marks the rows of
     only those chunks in one batched op.  A row is tested against the at
-    most ``block_size`` candidates of its own subtask, not all K.
+    most ``block_size`` candidates of its own subtask, not all K.  With
+    ``use_kernel=True`` the pass is the reference's kernel route instead:
+    kernel K4 over every row, once per round.
   * ``mode="drop"`` scatters are masked explicitly (``scatter_drop``).
 """
 from __future__ import annotations
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph_ops import scatter_drop
+from repro_torch.kernels import ops as kops
 from repro_torch.obs import get_tracer
 
 STATUS_OPEN = 0       # not yet processed
@@ -186,12 +189,13 @@ def recover_rounds(prob: RecoveryProblem, target: int = 2**31 - 1, *,
     With ``stop_at_target=False`` the result is bit-identical to
     :func:`recover_serial`.  With ``stop_at_target=True`` rounds stop as
     soon as the number of recovered edges reaches ``target``.
+
+    ``use_kernel=True`` runs each round's marking pass through kernel K4
+    (:func:`repro_torch.kernels.ops.similarity_mark`) over all ``m`` rows
+    against all ``max_candidates`` candidates, one launch per round, as
+    the reference does (``recovery.py:241-245``); the default marks only
+    the active chunks.  Both give the same status.
     """
-    if use_kernel:
-        raise NotImplementedError(
-            "recover_rounds(use_kernel=True) needs kernel K4, the "
-            "similarity_mark kernel of kernels/similarity.py, which is not "
-            "ported yet; use the default use_kernel=False")
     m = prob.m
     K, B = max_candidates, block_size
     dev = prob.seg.device
@@ -267,25 +271,43 @@ def recover_rounds(prob: RecoveryProblem, target: int = 2**31 - 1, *,
                                  STATUS_SKIPPED).to(torch.int8)
         status = scatter_drop(status, cidx, new_status, cvalid)
 
-        # ---- marking pass over the active chunks only ---------------------
+        # ---- marking pass: K4 over every row, or the active chunks only ---
         mark_beta = torch.where(recovered_c, cbeta, -1)   # -1 disables
-        rseg = torch.where(recovered_c, cseg, -3)
-        active = ((rseg[None, :] >= chunk_lo[:, None])
-                  & (rseg[None, :] <= chunk_hi[:, None])).any(dim=1)
-        act = torch.nonzero(active).flatten()             # host sync
-        if act.numel():
-            rows = (act[:, None] * chunk + chunk_rows[None, :]).flatten()
-            for lo in range(0, rows.numel(), _MARK_ROWS):
-                r = rows[lo:lo + _MARK_ROWS]
-                kill = _mark_rows(r, status, seg, sig_u, sig_v, cseg, csu,
-                                  csv, mark_beta, B)
-                status = scatter_drop(status, r, STATUS_SKIPPED, kill)
+        if use_kernel:
+            kill = kops.similarity_mark(csu, csv, mark_beta, cseg, sig_u,
+                                        sig_v, seg, tile_m=chunk)
+            kill = kill & (status == STATUS_OPEN)
+            status = torch.where(kill, STATUS_SKIPPED, status).to(torch.int8)
+        else:
+            status = _mark_active_chunks(status, seg, sig_u, sig_v, cseg,
+                                         csu, csv, mark_beta, recovered_c,
+                                         chunk_lo, chunk_hi, chunk_rows,
+                                         chunk, B)
 
         n_cand = n_cand + cvalid.sum()
         n_killed = n_killed + (cvalid & killed).sum()
     stats = RoundStats(rounds=rounds, candidates=int(n_cand),
                        killed_in_block=int(n_killed))
     return status, stats
+
+
+def _mark_active_chunks(status, seg, sig_u, sig_v, cseg, csu, csv,
+                        mark_beta, recovered_c, chunk_lo, chunk_hi,
+                        chunk_rows, chunk: int, B: int) -> torch.Tensor:
+    """Mark the open rows of the chunks whose subtask range holds a newly
+    recovered candidate; the other chunks cannot change this round."""
+    rseg = torch.where(recovered_c, cseg, -3)
+    active = ((rseg[None, :] >= chunk_lo[:, None])
+              & (rseg[None, :] <= chunk_hi[:, None])).any(dim=1)
+    act = torch.nonzero(active).flatten()             # host sync
+    if act.numel():
+        rows = (act[:, None] * chunk + chunk_rows[None, :]).flatten()
+        for lo in range(0, rows.numel(), _MARK_ROWS):
+            r = rows[lo:lo + _MARK_ROWS]
+            kill = _mark_rows(r, status, seg, sig_u, sig_v, cseg, csu, csv,
+                              mark_beta, B)
+            status = scatter_drop(status, r, STATUS_SKIPPED, kill)
+    return status
 
 
 def _mark_rows(rows, status, seg, sig_u, sig_v, cseg, csu, csv, mark_beta,

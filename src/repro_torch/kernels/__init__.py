@@ -2,7 +2,13 @@
 first use) and their plain PyTorch versions:
 
   vcycle_fused.py — K1 batched ELL spmv, K2 fused Chebyshev step, K3 fused
-                    restrict+residual, with their launch counts.
+                    restrict+residual.
+  similarity.py   — K4 strict-similarity marking pass of the recovery
+                    rounds.
+  spmv_ell.py     — K5 single-column ELL spmv and the host ELL slab layout
+                    of a graph Laplacian.
   ref.py          — the plain version of each kernel.
-  spmv_ell.py     — host ELL slab layout of a graph Laplacian.
+  _launch.py      — operand checks, the CUDA stream and the launch counts
+                    of all five.
+  ops.py          — public entry points; reads and resets the counts.
 """

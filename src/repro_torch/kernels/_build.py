@@ -34,6 +34,9 @@ SIGNATURES = {
     "repro_cheby_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                          _F, _F, _P],
     "repro_restrict_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_similarity_mark": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _P],
+    "repro_spmv_ell": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,17 +1,49 @@
 """Public kernel entry points of the port.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
-PyTorch version for CPU tensors (see :mod:`repro_torch.kernels.vcycle_fused`).
-Kernels K4 (``similarity_mark``), K5 (single-column ``spmv``) and K6
-(``ssm_scan``) of the reference are not ported yet.
+PyTorch version for CPU tensors (see :mod:`repro_torch.kernels._launch`).
+Kernel K6 (``ssm_scan``) of the reference is not ported yet.
+
+:func:`launch_counts` reads every kernel's launch count and
+:func:`reset_launches` sets them all to zero, so a run can show which
+kernels it went through.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import _launch
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import similarity as _similarity
+from repro_torch.kernels import spmv_ell as _spmv_ell
+from repro_torch.kernels._launch import reset_launches  # noqa: F401
 from repro_torch.kernels.spmv_ell import to_ell  # noqa: F401
 from repro_torch.kernels.vcycle_fused import (  # noqa: F401
-    launches, make_fused_chebyshev, make_fused_restrict_residual,
-    reset_launches, spmv_ell_batched)
+    make_fused_chebyshev, make_fused_restrict_residual, spmv_ell_batched)
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches}`` over K1-K5 since the last reset."""
+    return dict(_launch.launches)
+
+
+def similarity_mark(csu, csv, cbeta, cseg, esu, esv, eseg,
+                    tile_m: int = 512):
+    """K4 over any number of edge rows ``m``.
+
+    ``tile_m`` is the reference's row tile (``ops.py:21``), which padded
+    ``m`` to its multiple; here no row is padded, the CUDA kernel tiles by
+    its thread block and the plain version by a memory bound, so the
+    result does not depend on it."""
+    if tile_m <= 0:
+        raise ValueError(f"tile_m must be positive, got {tile_m}")
+    return _similarity.similarity_mark(csu, csv, cbeta, cseg, esu, esv, eseg)
+
+
+def spmv(idx, val, x):
+    """K5: single-column ELL spmv ``[n] -> [n]``; any row count."""
+    return _spmv_ell.spmv_ell(idx, val, x)
+
 
 spmv_batched = spmv_ell_batched
+similarity_mark_ref = _ref.similarity_mark_ref
+spmv_ref = _ref.spmv_ell_ref
 spmv_batched_ref = _ref.spmv_ell_batched_ref

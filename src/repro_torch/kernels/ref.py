@@ -1,13 +1,16 @@
 """Plain PyTorch versions of the hand-written CUDA kernels.
 
 Each function computes exactly what its kernel computes, in the same
-operation order: the CPU tests run them, the wrappers in
-:mod:`repro_torch.kernels.vcycle_fused` take them for CPU tensors, and
-``chip_smoke.py`` holds each kernel against its plain version on the card.
+operation order: the CPU tests run them, the wrappers
+(:mod:`~repro_torch.kernels.vcycle_fused`,
+:mod:`~repro_torch.kernels.similarity`, :mod:`~repro_torch.kernels.spmv_ell`)
+take them for CPU tensors, and ``chip_smoke.py`` holds each kernel against
+its plain version on the card.
 
 The ELL sums run over ``l`` in order, one rounded multiply and one rounded
-add per term; the kernels are built without FMA contraction, so K1 and its
-plain version agree bit for bit on the card.
+add per term; the kernels are built without FMA contraction, so K1 and K5
+agree bit for bit with their plain versions on the card.  K4's output is
+boolean, so it is bit-identical whatever order the work runs in.
 """
 from __future__ import annotations
 
@@ -48,13 +51,69 @@ def restrict_residual_ref(idx, val, perm, agg_ptr, agg_max: int, r, z):
     ``perm``/``agg_ptr`` are the aggregate CSR; ``agg_max`` its largest
     aggregate (the loop bound, fixed at hierarchy build)."""
     resid = r - spmv_ell_batched_ref(idx, val, z)
+    return aggregate_sum_ref(resid, perm, agg_ptr, agg_max)
+
+
+def aggregate_sum_ref(resid, perm, agg_ptr, agg_max: int):
+    """``out[c] = sum over the members i of aggregate c, ascending, of
+    resid[i]``: the ordered segment sum that K3 runs on the fly."""
     start = agg_ptr[:-1].long()
     counts = agg_ptr[1:].long() - start
     perm_l = perm.long()
-    out = torch.zeros((counts.shape[0], r.shape[1]), dtype=r.dtype,
-                      device=r.device)
+    out = torch.zeros((counts.shape[0], resid.shape[1]), dtype=resid.dtype,
+                      device=resid.device)
     for t in range(agg_max):
         live = counts > t
         pos = torch.where(live, start + t, 0)
         out = torch.where(live[:, None], out + resid[perm_l[pos]], out)
+    return out
+
+
+def spmv_ell_ref(idx, val, x):
+    """``y[i] = sum_l val[i, l] * x[idx[i, l]]`` for one column ``x [nx]``,
+    ``nx >= n``, summed in l order: the loop of K5, and one column of
+    :func:`spmv_ell_batched_ref` bit for bit (not ``torch.sum`` over the
+    gathered ``[n, L]`` block, whose order CUDA does not fix)."""
+    n, L = idx.shape
+    idx_l = idx.long()
+    acc = torch.zeros((n,), dtype=x.dtype, device=x.device)
+    for l in range(L):
+        acc = acc + val[:, l] * x[idx_l[:, l]]
+    return acc
+
+
+# bool cells of one chunk's [K, rows, c1, c1] match table (64 Mi)
+_SIM_CHUNK_CELLS = 1 << 26
+
+
+def similarity_mark_ref(csu, csv, cbeta, cseg, esu, esv, eseg):
+    """``kill[j]``: some candidate ``k`` of edge ``j``'s subtask
+    (``cseg[k] == eseg[j]``) strictly-similarity-marks it.
+
+    The reference's broadcast (``repro/kernels/ref.py``) over chunks of edge
+    rows: membership is ``exists (a, b): sig_x[k, a] == sig_y[j, b]`` with
+    ``a + b <= cbeta[k]``, and, as in the kernel, the pairs with
+    ``a + b > c1 - 1`` are skipped (``beta*`` never exceeds ``c``, so the
+    skip changes nothing on the engine's inputs).  The rows run in chunks
+    so the ``[K, rows, c1, c1]`` temporaries stay bounded at any ``m``."""
+    K, c1 = csu.shape
+    m = esu.shape[0]
+    a = torch.arange(c1, device=csu.device)
+    apb = a[:, None] + a[None, :]
+    # [K, c1, c1]: pair (a, b) counts for candidate k
+    ok = (apb[None] <= cbeta[:, None, None]) & (apb <= c1 - 1)[None]
+    rows_per_chunk = max(1, _SIM_CHUNK_CELLS // max(1, K * c1 * c1))
+    out = torch.zeros((m,), dtype=torch.bool, device=esu.device)
+
+    def match(sa, sb):  # [K, c1] x [R, c1] -> [K, R]
+        eq = sa[:, None, :, None] == sb[None, :, None, :]
+        return (eq & ok[:, None]).flatten(-2).any(-1)
+
+    for lo in range(0, m, rows_per_chunk):
+        hi = min(m, lo + rows_per_chunk)
+        eu, ev = esu[lo:hi], esv[lo:hi]
+        sim = ((match(csu, eu) & match(csv, ev))
+               | (match(csu, ev) & match(csv, eu)))
+        sim &= cseg[:, None] == eseg[None, lo:hi]
+        out[lo:hi] = sim.any(dim=0)
     return out

@@ -8,8 +8,9 @@ CUDA device, and runs the kernel's plain PyTorch version
 decides the route: no environment variable, no check of whether the
 toolchain imports.  On a CUDA tensor the wrapper launches or raises.
 
-Each launch adds one to its kernel's count in :data:`launches`, so a run
-can show that it went through the kernels.
+Each launch adds one to its kernel's count
+(:data:`repro_torch.kernels._launch.launches`), so a run can show that it
+went through the kernels.
 
 Design notes for the card (the TPU kernels held whole levels in VMEM):
 
@@ -30,13 +31,8 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import ref as _ref
-
-launches = {"spmv_ell_batched": 0, "cheby_step": 0, "restrict_residual": 0}
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+from repro_torch.kernels._launch import (count, on_cuda, ptr, require,
+                                         slabs, stream)
 
 
 def cheby_coeffs(rho: float):
@@ -78,62 +74,26 @@ def cheby_recurrence(matvec: Callable, inv_d, r, z, *, degree: int,
 
 
 # ---------------------------------------------------------------------------
-# launch plumbing
-# ---------------------------------------------------------------------------
-
-def _on_cuda(*tensors) -> bool:
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"kernel operands on several devices: {devs}")
-    return next(iter(devs)).type == "cuda"
-
-
-def _require(t, name: str, dtype, ndim: int):
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _slabs(idx, val):
-    _require(idx, "idx", torch.int32, 2)
-    _require(val, "val", torch.float32, 2)
-    if idx.shape != val.shape:
-        raise ValueError(f"idx {tuple(idx.shape)} != val {tuple(val.shape)}")
-    return idx.shape
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
-# ---------------------------------------------------------------------------
 # K1: batched-RHS ELL spmv
 # ---------------------------------------------------------------------------
 
 def spmv_ell_batched(idx, val, x):
     """``y[i, j] = sum_l val[i, l] * x[idx[i, l], j]`` for ``x [nx, k]``,
     ``nx >= n``; ``[n, k]`` out."""
-    if not _on_cuda(idx, val, x):
+    if not on_cuda(idx, val, x):
         return _ref.spmv_ell_batched_ref(idx, val, x)
     from repro_torch.kernels._build import check, library
 
-    n, L = _slabs(idx, val)
-    _require(x, "x", torch.float32, 2)
+    n, L = slabs(idx, val)
+    require(x, "x", torch.float32, 2)
     if x.shape[0] < n:
         raise ValueError(f"x has {x.shape[0]} rows, the slab {n}")
     k = x.shape[1]
     y = torch.empty((n, k), dtype=torch.float32, device=x.device)
     check(library().repro_spmv_ell_batched(
         idx.data_ptr(), val.data_ptr(), x.data_ptr(), y.data_ptr(), n, L, k,
-        _stream()), "spmv_ell_batched")
-    launches["spmv_ell_batched"] += 1
+        stream()), "spmv_ell_batched")
+    count("spmv_ell_batched")
     return y
 
 
@@ -146,7 +106,7 @@ def cheby_step(idx, val, inv_d, r, z_prev, p, z_out, *, first: bool,
     """One recurrence step: writes ``p`` (in place) and ``z_out``, returns
     them.  ``z_prev=None`` is the first step from the zero iterate (no
     matvec)."""
-    if not _on_cuda(idx, val, inv_d, r, z_prev, p, z_out):
+    if not on_cuda(idx, val, inv_d, r, z_prev, p, z_out):
         p_new, z_new = _ref.cheby_step_ref(idx, val, inv_d, r, z_prev, p,
                                            first=first, theta=theta,
                                            c1=c1, c2=c2)
@@ -155,11 +115,11 @@ def cheby_step(idx, val, inv_d, r, z_prev, p, z_out, *, first: bool,
         return p, z_out
     from repro_torch.kernels._build import check, library
 
-    n, L = _slabs(idx, val)
-    _require(inv_d, "inv_d", torch.float32, 1)
+    n, L = slabs(idx, val)
+    require(inv_d, "inv_d", torch.float32, 1)
     for name, t in (("r", r), ("z_prev", z_prev), ("p", p), ("z_out", z_out)):
         if t is not None:
-            _require(t, name, torch.float32, 2)
+            require(t, name, torch.float32, 2)
             if t.shape != r.shape or r.shape[0] != n:
                 raise ValueError(f"{name} shape {tuple(t.shape)} != "
                                  f"r {tuple(r.shape)} with {n} slab rows")
@@ -167,10 +127,10 @@ def cheby_step(idx, val, inv_d, r, z_prev, p, z_out, *, first: bool,
         raise ValueError("z_out must not alias z_prev (rows read z_prev)")
     check(library().repro_cheby_step(
         idx.data_ptr(), val.data_ptr(), inv_d.data_ptr(), r.data_ptr(),
-        _ptr(z_prev), p.data_ptr(), z_out.data_ptr(), n, L, r.shape[1],
-        int(first), float(theta), float(c1), float(c2), _stream()),
+        ptr(z_prev), p.data_ptr(), z_out.data_ptr(), n, L, r.shape[1],
+        int(first), float(theta), float(c1), float(c2), stream()),
         "cheby_step")
-    launches["cheby_step"] += 1
+    count("cheby_step")
     return p, z_out
 
 
@@ -204,16 +164,16 @@ def make_fused_chebyshev(idx, val, diag, rho: float, *,
 def restrict_residual(idx, val, perm, agg_ptr, agg_max: int, r, z):
     """``rc[c] = sum_{i in aggregate c, ascending} (r - A z)[i]``,
     ``[n_coarse, k]`` out; the fine residual is never materialized."""
-    if not _on_cuda(idx, val, perm, agg_ptr, r, z):
+    if not on_cuda(idx, val, perm, agg_ptr, r, z):
         return _ref.restrict_residual_ref(idx, val, perm, agg_ptr, agg_max,
                                           r, z)
     from repro_torch.kernels._build import check, library
 
-    n, L = _slabs(idx, val)
-    _require(perm, "perm", torch.int32, 1)
-    _require(agg_ptr, "agg_ptr", torch.int32, 1)
-    _require(r, "r", torch.float32, 2)
-    _require(z, "z", torch.float32, 2)
+    n, L = slabs(idx, val)
+    require(perm, "perm", torch.int32, 1)
+    require(agg_ptr, "agg_ptr", torch.int32, 1)
+    require(r, "r", torch.float32, 2)
+    require(z, "z", torch.float32, 2)
     if r.shape != z.shape or r.shape[0] != n or perm.shape[0] != n:
         raise ValueError("restrict_residual: r, z and perm need the slab's "
                          f"{n} rows; got {tuple(r.shape)}, {tuple(z.shape)},"
@@ -223,8 +183,8 @@ def restrict_residual(idx, val, perm, agg_ptr, agg_max: int, r, z):
     check(library().repro_restrict_residual(
         idx.data_ptr(), val.data_ptr(), perm.data_ptr(), agg_ptr.data_ptr(),
         r.data_ptr(), z.data_ptr(), rc.data_ptr(), n_coarse, L, k,
-        _stream()), "restrict_residual")
-    launches["restrict_residual"] += 1
+        stream()), "restrict_residual")
+    count("restrict_residual")
     return rc
 
 

@@ -46,9 +46,9 @@ class Pipeline:
         n, c, chunk = graph.n, cfg.c, cfg.chunk
         tracer = get_tracer()
         with tracer.span("pipeline.prepare", n=n, m=graph.m) as psp:
-            src = torch.as_tensor(graph.src, device=device)
-            dst = torch.as_tensor(graph.dst, device=device)
-            w = torch.as_tensor(graph.weight, device=device)
+            src = torch.tensor(graph.src, device=device)
+            dst = torch.tensor(graph.dst, device=device)
+            w = torch.tensor(graph.weight, device=device)
 
             with tracer.span("pipeline.tree", kind=cfg.tree.kind):
                 tree = TREE_STAGES[cfg.tree.kind](n, src, dst, w, cfg.tree)

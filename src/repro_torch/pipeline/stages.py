@@ -10,9 +10,9 @@ Three registries, looked up by the ``kind`` strings in
                              (recovered_mask [graph.m] bool, stats dict)``
 
 Ported: ``low_stretch``/``boruvka``, ``w_times_r``/``r`` and
-``rounds``/``serial``.  ``er_sample``, ``er_exact``, ``distributed`` and
-``multipass`` are registered, so every config of the reference validates,
-but raise :class:`NotImplementedError` when run.
+``rounds``/``serial``/``multipass``.  ``er_sample``, ``er_exact`` and
+``distributed`` are registered, so every config of the reference
+validates, but raise :class:`NotImplementedError` when run.
 """
 from __future__ import annotations
 
@@ -111,4 +111,16 @@ def engine_serial(prep, target, cfg: PipelineConfig, **ctx):
 
 
 _not_ported(RECOVERY_ENGINES, "distributed")
-_not_ported(RECOVERY_ENGINES, "multipass")
+
+
+@register(RECOVERY_ENGINES, "multipass")
+def engine_multipass(prep, target, cfg: PipelineConfig, **ctx):
+    """feGRASS recovery: loose (vertex-cover) similarity, multi-pass, host.
+
+    The baseline the paper measures against (its Table II); under the same
+    ``Pipeline`` harness, pdGRASS against feGRASS is a recovery-stage diff.
+    """
+    from repro_torch.core.fegrass import loose_multipass_recover
+
+    return loose_multipass_recover(prep, target, c=cfg.c,
+                                   max_passes=cfg.recovery.max_passes)

@@ -17,6 +17,10 @@ solve at the coarsest level, prolongation and Chebyshev post-smooth.
     spectral radius power iteration's), K2 for every smoothing sweep, K3
     for every down-sweep.  On CPU tensors the same calls run the kernels'
     plain versions.
+  * ``"kernel"`` — kernel K5, one launch per column of every matvec, as
+    the reference's per-column Pallas route; the V-cycle then runs the
+    unfused Chebyshev recurrence and restriction over that matvec.  On CPU
+    tensors K5's wrapper runs its plain version.
   * ``"ref"`` — the plain PyTorch versions, composed as the reference's
     jnp path is.
   * ``None`` — ``"fused"`` on a CUDA device, ``"ref"`` on the CPU.
@@ -32,13 +36,12 @@ trips change neither ``x`` nor ``iters``.
 """
 from __future__ import annotations
 
-import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.spmv_ell import to_ell
+from repro_torch.kernels.spmv_ell import spmv_ell, to_ell
 from repro_torch.kernels.vcycle_fused import (cheby_coeffs, cheby_recurrence,
                                               make_fused_chebyshev,
                                               make_fused_restrict_residual,
@@ -66,17 +69,19 @@ def ell_laplacian(graph, *, device="cuda"):
 
 def make_matvec(idx, val, impl: str = "ref") -> Callable:
     """Batched ELL matvec ``[n, k] -> [n, k]``: ``"fused"`` through kernel
-    K1, ``"ref"`` through its plain version."""
+    K1, ``"kernel"`` through one launch of kernel K5 per column, ``"ref"``
+    through K1's plain version.  All three sum each row in the same order,
+    so they give the same bits."""
     if impl == "fused":
         def matvec(x):
             return spmv_ell_batched(idx, val, x)
+    elif impl == "kernel":
+        def matvec(x):
+            return torch.stack([spmv_ell(idx, val, x[:, j].contiguous())
+                                for j in range(x.shape[1])], dim=1)
     elif impl == "ref":
         def matvec(x):
             return kref.spmv_ell_batched_ref(idx, val, x)
-    elif impl == "kernel":
-        raise NotImplementedError(
-            "matvec_impl='kernel' needs kernel K5 (the single-column spmv of "
-            "kernels/spmv_ell.py), which is not ported yet; use 'fused'")
     else:
         raise ValueError(f"unknown matvec impl {impl!r}")
     return matvec
@@ -138,8 +143,9 @@ def make_vcycle(hier: Hierarchy, *, degree: int = 2,
     """Symmetric V(1,1)-cycle apply ``r [n, k] -> z ~= L_P^+ r``.
 
     Each level's spectral radius comes from the power iteration over that
-    level's ``matvec_impl`` matvec; K1 and its plain version are bitwise
-    equal, so both impls bake in the same polynomial coefficients."""
+    level's ``matvec_impl`` matvec; K1, K5 and their plain version are
+    bitwise equal, so every impl bakes in the same polynomial
+    coefficients."""
     fused = matvec_impl == "fused"
     matvecs = [make_matvec(lev.idx, lev.val, matvec_impl)
                for lev in hier.levels]
@@ -157,10 +163,8 @@ def make_vcycle(hier: Hierarchy, *, degree: int = 2,
     else:
         smoothers = [make_chebyshev_smoother(mv, lev.diag, rho, degree=degree)
                      for mv, lev, rho in zip(matvecs, hier.levels, rhos)]
-        restricts = [functools.partial(kref.restrict_residual_ref, lev.idx,
-                                       lev.val, lev.perm, lev.agg_ptr,
-                                       lev.agg_max)
-                     for lev in hier.levels]
+        restricts = [_make_restrict(mv, lev)
+                     for mv, lev in zip(matvecs, hier.levels)]
     aggs = [lev.agg.long() for lev in hier.levels]
 
     def coarse_solve(r):
@@ -192,6 +196,16 @@ def make_vcycle(hier: Hierarchy, *, degree: int = 2,
 
     msolve.rhos = rhos
     return msolve
+
+
+def _make_restrict(matvec: Callable, lev) -> Callable:
+    """``restrict(r, z)``: the ordered aggregate sum of ``r - A z`` with the
+    level's own matvec (K3's function, unfused)."""
+    def restrict(r, z):
+        return kref.aggregate_sum_ref(r - matvec(z), lev.perm, lev.agg_ptr,
+                                      lev.agg_max)
+
+    return restrict
 
 
 def make_jacobi(diag) -> Callable:

@@ -1,22 +1,34 @@
-"""The CUDA kernels K1-K3 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K5 against their plain PyTorch versions, and the
+port's service, on the card.
 
-Every test here needs a CUDA device and skips without one (decided in a
-fixture).  The file imports no JAX, so it runs on a machine with only
-PyTorch:
+Every ``gpu``-marked test needs a CUDA device and skips without one
+(decided in a fixture).  The file imports no JAX, so it runs on a machine
+with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
+
+One test here runs on the CPU as well: the port and ``chip_smoke.py``
+import neither ``jax`` nor the JAX package ``repro``.
 """
+import ast
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.graph import mesh2d  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import vcycle_fused as tvf  # noqa: E402
-from repro_torch.solver import (build_hierarchy, ell_laplacian,  # noqa: E402
-                                make_solver)
+from repro_torch.solver import (SolveRequest, SolverService,  # noqa: E402
+                                build_hierarchy, ell_laplacian, make_solver)
 from repro_torch.solver.hierarchy import aggregate_csr  # noqa: E402
+
+V_CYCLE_KERNELS = ("spmv_ell_batched", "cheby_step", "restrict_residual")
 
 
 @pytest.fixture
@@ -38,7 +50,7 @@ def test_gpu_kernels_match_plain(cuda, n, k):
                         dtype=torch.int32)
     val = torch.randn((n, L), generator=gen, device=cuda)
     x = torch.randn((nx, k), generator=gen, device=cuda)
-    before = dict(tvf.launches)
+    before = kops.launch_counts()
     assert torch.equal(tvf.spmv_ell_batched(idx, val, x),
                        kref.spmv_ell_batched_ref(idx, val, x))
     idx = idx % n
@@ -57,7 +69,8 @@ def test_gpu_kernels_match_plain(cuda, n, k):
         tvf.restrict_residual(idx, val, perm, ptr, amax, r, z),
         kref.restrict_residual_ref(idx, val, perm, ptr, amax, r, z),
         rtol=1e-5, atol=1e-5)
-    assert all(tvf.launches[name] == before[name] + 1 for name in before)
+    after = kops.launch_counts()
+    assert all(after[name] == before[name] + 1 for name in V_CYCLE_KERNELS)
 
 
 @pytest.mark.gpu
@@ -84,10 +97,134 @@ def test_gpu_slice_matches_cpu_and_plain(cuda):
         assert torch.equal(a.agg.cpu(), b.agg)
     idx, val = ell_laplacian(g, device=cuda)
     b = np.random.default_rng(0).standard_normal((g.n, 4)).astype(np.float32)
-    before = dict(tvf.launches)
+    before = kops.launch_counts()
     fused = make_solver(idx, val, hier, device=cuda)(b)
-    assert all(tvf.launches[k] > before[k] for k in before)
+    after = kops.launch_counts()
+    assert all(after[k] > before[k] for k in V_CYCLE_KERNELS)
     plain = make_solver(idx, val, hier, matvec_impl="ref", device=cuda)(b)
     assert bool(fused.converged.all())
     assert torch.equal(fused.iters, plain.iters)
     assert torch.equal(fused.x, plain.x)
+
+
+def _sim_problem(rng, K, m, c1, device, n_seg=5):
+    sig = lambda r: rng.integers(0, 30, size=(r, c1)).astype(np.int32)
+    csu, csv = sig(K), sig(K)
+    esu, esv = sig(m), sig(m)
+    cbeta = rng.integers(-1, c1, size=K).astype(np.int32)
+    cseg = rng.integers(0, n_seg, size=K).astype(np.int32)
+    eseg = rng.integers(0, n_seg, size=m).astype(np.int32)
+    eseg[rng.random(m) < 0.1] = -1
+    return [torch.as_tensor(a, device=device)
+            for a in (csu, csv, cbeta, cseg, esu, esv, eseg)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,m,c1", [(8, 64, 9), (16, 512, 9), (128, 1024, 9),
+                                    (4, 100, 5), (32, 96, 13), (1, 32, 3),
+                                    (33, 200, 9), (300, 5000, 16)])
+def test_gpu_k4_bitwise_equal_to_plain(cuda, K, m, c1):
+    args = _sim_problem(np.random.default_rng(K * m), K, m, c1, cuda)
+    before = kops.launch_counts()["similarity_mark"]
+    got = kops.similarity_mark(*args)
+    assert got.device.type == "cuda" and got.dtype == torch.bool
+    assert torch.equal(got, kref.similarity_mark_ref(*args))
+    assert kops.launch_counts()["similarity_mark"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [31, 100, 257])
+def test_gpu_k5_bitwise_equal_to_plain_and_k1(cuda, n):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    idx = torch.randint(0, n + 3, (n, 6), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    val = torch.randn((n, 6), generator=gen, device=cuda)
+    x = torch.randn((n + 3,), generator=gen, device=cuda)
+    before = kops.launch_counts()["spmv_ell"]
+    y = kops.spmv(idx, val, x)
+    assert torch.equal(y, kref.spmv_ell_ref(idx, val, x))
+    assert torch.equal(y, kops.spmv_batched(idx, val,
+                                            x[:, None].contiguous())[:, 0])
+    assert kops.launch_counts()["spmv_ell"] == before + 1
+    with pytest.raises(ValueError):
+        kops.spmv(idx, val, x[:n - 1])
+
+
+@pytest.mark.gpu
+def test_gpu_service_matches_cpu_service(cuda):
+    """The service on the card against the service on the CPU, same graph
+    and requests: the same aggregation, iterations within +-1 and x within
+    the parity tolerance (re-based, rtol 1e-3); on the card the K5 route
+    equals the fused route bitwise and launches K5.
+
+    The two devices reduce in other orders (the power iteration's norms,
+    the coarse Cholesky factor and solve), so the solves are not bitwise
+    equal; column 0 of this graph sits on a near-tie at tol 1e-5, where
+    one ULP of one level's spectral radius estimate moves it between 52
+    and 53 iterations (ROADMAP queue 3)."""
+    g = mesh2d(24, 24, seed=3)
+    b = np.random.default_rng(0).standard_normal((g.n, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        svc = SolverService(alpha=0.05, device=dev)
+        h = svc.register(g)
+        tickets = [svc.submit(SolveRequest(graph=h, b=b[:, :1])),
+                   svc.submit(SolveRequest(graph=h, b=b[:, 1:]))]
+        svc.flush()
+        _, (_, _, hier), _ = svc.artifacts(h)
+        out[str(dev)] = ([t.result() for t in tickets], hier, svc)
+    (cpu_rs, cpu_h, _), (gpu_rs, gpu_h, gpu_svc) = out["cpu"], out["cuda"]
+    assert cpu_h.level_sizes == gpu_h.level_sizes
+    for a, c in zip(gpu_h.levels, cpu_h.levels):
+        assert a.agg.device.type == "cuda"
+        assert torch.equal(a.agg.cpu(), c.agg)
+    for rg, rc in zip(gpu_rs, cpu_rs):
+        assert np.all(np.abs(rg.iters.astype(int) - rc.iters) <= 1)
+        xg, xc = rg.x - rg.x[0], rc.x - rc.x[0]
+        np.testing.assert_allclose(xg, xc, rtol=1e-3,
+                                   atol=1e-3 * np.abs(xc).max())
+        assert rg.converged
+    kern = SolverService(alpha=0.05, device=cuda, matvec_impl="kernel",
+                         store=gpu_svc.store)
+    kern.warmup(g)
+    before = kops.launch_counts()["spmv_ell"]
+    rk = kern.solve(g, b[:, 1:])
+    assert kops.launch_counts()["spmv_ell"] > before
+    rf = gpu_svc.solve(g, b[:, 1:])
+    np.testing.assert_array_equal(rk.x, rf.x)
+    np.testing.assert_array_equal(rk.iters, rf.iters)
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    """Importing every module of repro_torch leaves neither ``jax`` nor
+    ``repro`` in ``sys.modules`` (nothing blocked: a stray import would
+    load them), and ``chip_smoke.py`` imports neither at any level."""
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    src = os.path.join(root, "src")
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=src, timeout=120,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 28
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert "repro_torch" in roots

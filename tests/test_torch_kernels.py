@@ -1,10 +1,10 @@
-"""The port's kernels K1-K3 (repro_torch.kernels) against the JAX package.
+"""The port's kernels K1-K5 (repro_torch.kernels) against the JAX package.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; these are
 held against the reference's jnp path and against its Pallas kernels in
 interpret mode, with rtol 1e-5 and atol 1e-5 * max|input| (the two
-frameworks sum in different orders).  The ELL slab layout must be
-bit-identical.  The CUDA kernels themselves are tested on the card by
+frameworks sum in different orders).  The ELL slab layout and K4's boolean
+marks must be bit-identical.  The CUDA kernels themselves are tested on the card by
 ``tests/test_torch_gpu.py``.
 """
 import numpy as np
@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import graph as jgraph  # noqa: E402
 from repro.core.device_graph import DeviceGraph as JDeviceGraph  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import vcycle_fused as jvf  # noqa: E402
 from repro.kernels.spmv_ell import to_ell as jto_ell  # noqa: E402
 from repro.pipeline import pdgrass_config as jconfig  # noqa: E402
@@ -24,6 +25,7 @@ from repro.solver import device_pcg as jpcg  # noqa: E402
 from repro.solver.hierarchy import build_hierarchy as jbuild  # noqa: E402
 from repro_torch.core import graph as tgraph  # noqa: E402
 from repro_torch.core.device_graph import DeviceGraph  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import vcycle_fused as tvf  # noqa: E402
 from repro_torch.kernels.spmv_ell import to_ell  # noqa: E402
@@ -100,13 +102,13 @@ def test_k1_plain_matches_reference_edge_sizes(n, k):
 
 
 def test_k1_on_cpu_runs_plain_and_counts_nothing():
-    before = dict(tvf.launches)
+    before = tops.launch_counts()
     idx, val = to_ell(TG["mesh12"], device="cpu")
     x = torch.as_tensor(_rhs(TG["mesh12"].n, 4, seed=2))
     y = tvf.spmv_ell_batched(idx, val, x)
     assert y.device.type == "cpu"
     assert torch.equal(y, kref.spmv_ell_batched_ref(idx, val, x))
-    assert tvf.launches == before
+    assert tops.launch_counts() == before
 
 
 # -- K2 ------------------------------------------------------------------------
@@ -185,3 +187,102 @@ def test_aggregate_csr_lists_members_ascending():
 def test_cheby_coeffs_match_reference():
     for rho in (0.3, 1.0, 1.9481308):
         assert tvf.cheby_coeffs(rho) == jvf.cheby_coeffs(rho)
+
+
+# -- K4 ------------------------------------------------------------------------
+
+def _sim_problem(rng, K, m, c1, n_seg=5):
+    """Drawn as the reference's kernel test draws them."""
+    sig = lambda r: rng.integers(0, 30, size=(r, c1)).astype(np.int32)
+    csu, csv = sig(K), sig(K)
+    esu, esv = sig(m), sig(m)
+    cbeta = rng.integers(-1, c1, size=K).astype(np.int32)
+    cseg = rng.integers(0, n_seg, size=K).astype(np.int32)
+    eseg = rng.integers(0, n_seg, size=m).astype(np.int32)
+    eseg[rng.random(m) < 0.1] = -1  # padding rows
+    return csu, csv, cbeta, cseg, esu, esv, eseg
+
+
+def _k4_all_routes(args, tile_m, monkeypatch):
+    """The port's ops entry point and plain version (one chunk, then chunks
+    of 7 rows) against the reference's Pallas kernel (interpret mode) and
+    its oracle."""
+    t_args = [torch.as_tensor(a) for a in args]
+    j_args = [jnp.asarray(a) for a in args]
+    want = np.asarray(jops.similarity_mark(*j_args, tile_m=tile_m))
+    np.testing.assert_array_equal(
+        np.asarray(jops.similarity_mark_ref(*j_args)), want)
+    got = tops.similarity_mark(*t_args, tile_m=tile_m)
+    assert got.dtype == torch.bool and got.shape == (args[4].shape[0],)
+    np.testing.assert_array_equal(got.numpy(), want)
+    K, c1 = args[0].shape
+    monkeypatch.setattr(kref, "_SIM_CHUNK_CELLS", 7 * K * c1 * c1)
+    np.testing.assert_array_equal(
+        kref.similarity_mark_ref(*t_args).numpy(), want)
+
+
+@pytest.mark.parametrize("K,m,c1,tile_m", [
+    (8, 64, 9, 32),
+    (16, 512, 9, 512),
+    (128, 1024, 9, 256),
+    (4, 100, 5, 64),      # m not a multiple of tile_m
+    (32, 96, 13, 32),     # larger c
+])
+def test_k4_plain_matches_reference(K, m, c1, tile_m, monkeypatch):
+    rng = np.random.default_rng(K * m)
+    _k4_all_routes(_sim_problem(rng, K, m, c1), tile_m, monkeypatch)
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+@pytest.mark.parametrize("K", [1, 8, 33])
+@pytest.mark.parametrize("m,c1", [(32, 3), (200, 9)])
+def test_k4_plain_matches_reference_seeded(seed, K, m, c1, monkeypatch):
+    rng = np.random.default_rng(seed * 1000 + K * m + c1)
+    _k4_all_routes(_sim_problem(rng, K, m, c1), 32, monkeypatch)
+
+
+def test_k4_static_skip_of_pairs_past_c():
+    """A beta above c1 - 1 still tests only the pairs a + b <= c1 - 1, as
+    the TPU kernel's static skip does (beta* never exceeds c)."""
+    csu = np.array([[1, 2, 3]], np.int32)
+    csv = np.array([[4, 5, 6]], np.int32)
+    esu = np.array([[0, 0, 3], [0, 2, 0]], np.int32)
+    esv = np.array([[0, 0, 6], [0, 5, 0]], np.int32)
+    args = [torch.as_tensor(a) for a in
+            (csu, csv, np.array([5], np.int32), np.array([0], np.int32),
+             esu, esv, np.array([0, 0], np.int32))]
+    # row 0 matches only at (a, b) = (2, 2): a + b = 4 > c1 - 1 = 2
+    assert tops.similarity_mark(*args).tolist() == [False, True]
+    want = jops.similarity_mark(*[jnp.asarray(a.numpy()) for a in args],
+                                tile_m=2)
+    assert np.asarray(want).tolist() == [False, True]
+
+
+def test_k4_on_cpu_counts_nothing():
+    before = tops.launch_counts()
+    args = [torch.as_tensor(a) for a in
+            _sim_problem(np.random.default_rng(5), 8, 40, 9)]
+    assert tops.similarity_mark(*args).device.type == "cpu"
+    assert tops.launch_counts() == before
+
+
+# -- K5 ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [31, 100, 257])
+def test_k5_plain_matches_reference(n):
+    """Against the reference's oracle and its Pallas kernel (interpret
+    mode) within rtol 1e-5; bitwise against one column of K1."""
+    rng = np.random.default_rng(n * 31)
+    L = 6
+    idx = rng.integers(0, n, (n, L)).astype(np.int32)
+    val = rng.standard_normal((n, L)).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    ti, tv, tx = map(torch.as_tensor, (idx, val, x))
+    before = tops.launch_counts()
+    got = tops.spmv(ti, tv, tx)
+    assert got.shape == (n,) and tops.launch_counts() == before
+    assert torch.equal(got, kref.spmv_ell_ref(ti, tv, tx))
+    assert torch.equal(got, tops.spmv_batched(ti, tv, tx[:, None])[:, 0])
+    ji, jv, jx = map(jnp.asarray, (idx, val, x))
+    _close(got, jops.spmv_ref(ji, jv, jx), val, x)
+    _close(got, jops.spmv(ji, jv, jx, tile_n=32), val, x)

@@ -3,7 +3,9 @@ package on the tiny suite plus mesh2d(12, 12).
 
 Integer and boolean outputs must be bit-identical: graphs, the tree mask,
 parent, depth, the lifting ``up`` table, ancestor signatures, subtask ids,
-recovery status and the recovered/sparsifier masks.  Scores rtol 1e-6.
+recovery status (both engines' routes, K4's included), the
+recovered/sparsifier masks and the feGRASS masks; ``quality_iters`` equal.
+Scores rtol 1e-6; the dense PCG +-2 iterations.
 Both packages run on the CPU; inputs cross as numpy arrays.
 """
 import os
@@ -19,12 +21,16 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import graph as jgraph  # noqa: E402
 from repro.core import graph_ops as jops  # noqa: E402
+from repro.core import pcg as jpcg  # noqa: E402
 from repro.core import recovery as jrec  # noqa: E402
+from repro.core.fegrass import fegrass as jfegrass  # noqa: E402
 from repro.pipeline import Pipeline as JPipeline  # noqa: E402
 from repro.pipeline import pdgrass_config as jconfig  # noqa: E402
 from repro_torch.core import graph as tgraph  # noqa: E402
 from repro_torch.core import graph_ops as tops  # noqa: E402
+from repro_torch.core import pcg as tpcg  # noqa: E402
 from repro_torch.core import recovery as trec  # noqa: E402
+from repro_torch.core.fegrass import fegrass as tfegrass  # noqa: E402
 from repro_torch.pipeline import Pipeline as TPipeline  # noqa: E402
 from repro_torch.pipeline import pdgrass_config as tconfig  # noqa: E402
 
@@ -114,10 +120,119 @@ def test_sparsifier_masks_bit_identical(graphs, prepared, name):
     assert ts.stats["rounds"] == js.stats["rounds"]
 
 
-def test_use_kernel_raises_naming_k4(prepared):
-    _, tp = prepared["mesh12"]
-    with pytest.raises(NotImplementedError, match="K4"):
-        trec.recover_rounds(tp.problem, chunk=CHUNK, use_kernel=True)
+# -- the K4 route of the round engine ----------------------------------------
+
+def test_k4_engine_matches_reference_and_serial():
+    """The reference's kernel-route test graph (``test_recovery.py:148``):
+    without a target, the K4 route equals the reference's K4 route (its
+    Pallas kernel in interpret mode), the serial oracle and the default
+    route, status and stats."""
+    jp = JPipeline(jconfig(chunk=256)).prepare(
+        jgraph.barabasi_albert(300, 3, seed=3))
+    tp = TPipeline(tconfig(chunk=256)).prepare(
+        tgraph.barabasi_albert(300, 3, seed=3), device="cpu")
+    kw = dict(block_size=16, max_candidates=64, stop_at_target=False,
+              chunk=256)
+    js, jst = jrec.recover_rounds(jp.problem, use_kernel=True, **kw)
+    ts, tst = trec.recover_rounds(tp.problem, use_kernel=True, **kw)
+    td, tdst = trec.recover_rounds(tp.problem, **kw)
+    np.testing.assert_array_equal(_np(ts), _np(js))
+    np.testing.assert_array_equal(_np(ts), trec.recover_serial(tp.problem))
+    assert torch.equal(ts, td) and tst == tdst
+    assert (tst.rounds, tst.candidates, tst.killed_in_block) == (
+        int(jst.rounds), int(jst.candidates), int(jst.killed_in_block))
+
+
+def test_k4_engine_matches_reference_at_target(prepared, graphs):
+    jp, tp = prepared["mesh12"]
+    target = int(np.ceil(0.05 * graphs[0]["mesh12"].n))
+    js, jst = jrec.recover_rounds(jp.problem, target, stop_at_target=True,
+                                  chunk=CHUNK, use_kernel=True)
+    ts, tst = trec.recover_rounds(tp.problem, target, stop_at_target=True,
+                                  chunk=CHUNK, use_kernel=True)
+    td, tdst = trec.recover_rounds(tp.problem, target, stop_at_target=True,
+                                   chunk=CHUNK)
+    np.testing.assert_array_equal(_np(ts), _np(js))
+    assert torch.equal(ts, td) and tst == tdst
+    assert tst.rounds == int(jst.rounds)
+
+
+# -- feGRASS baseline and the quality metric ---------------------------------
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fegrass_masks_and_stats_bit_identical(graphs, prepared, name):
+    jg, tg = graphs
+    jp, tp = prepared[name]
+    js = jfegrass(jg[name], alpha=0.05, prepared=jp)
+    ts = tfegrass(tg[name], alpha=0.05, prepared=tp, device="cpu")
+    np.testing.assert_array_equal(ts.tree_mask, js.tree_mask)
+    np.testing.assert_array_equal(ts.recovered_mask, js.recovered_mask)
+    assert ts.stats == js.stats
+
+
+def test_fegrass_multipass_on_a_hub_graph_matches_reference():
+    """The multi-pass pathology the paper removes: on a hub graph feGRASS
+    needs several passes, pdGRASS one; the port counts the same."""
+    jg = jgraph.star_hub(400, extra=300, seed=10)
+    tg = tgraph.star_hub(400, extra=300, seed=10)
+    js = jfegrass(jg, alpha=0.10)
+    ts = tfegrass(tg, alpha=0.10, device="cpu")
+    np.testing.assert_array_equal(ts.recovered_mask, js.recovered_mask)
+    assert ts.stats == js.stats and ts.stats["passes"] > 3
+    pd = TPipeline(tconfig(alpha=0.10)).run(tg, device="cpu")
+    assert pd.stats["passes"] == 1
+    assert pd.stats["n_recovered"] >= ts.stats["n_recovered"]
+
+
+@pytest.mark.parametrize("name", ["mesh", "ba", "mesh12"])
+def test_quality_iters_equal_reference(graphs, prepared, name):
+    jg, tg = graphs
+    jp, tp = prepared[name]
+    js = JPipeline(jconfig(alpha=0.05, chunk=CHUNK)).run(jg[name],
+                                                         prepared=jp)
+    ts = TPipeline(tconfig(alpha=0.05, chunk=CHUNK)).run(tg[name],
+                                                         prepared=tp)
+    assert tpcg.quality_iters(tg[name], ts) == jpcg.quality_iters(jg[name],
+                                                                  js)
+
+
+@pytest.mark.parametrize("precond", [False, True])
+def test_pcg_torch_matches_pcg_jax(graphs, prepared, precond):
+    """Dense PCG on the grounded mesh12 Laplacian, float32 in both: +-2
+    iterations, relres <= tol."""
+    jg, tg = graphs
+    g = tg["mesh12"]
+    L = g.laplacian().toarray()[1:, 1:]
+    b = np.random.default_rng(4).standard_normal(g.n - 1)
+    chol = None
+    if precond:
+        sp = TPipeline(tconfig(alpha=0.10, chunk=CHUNK)).run(
+            g, prepared=prepared["mesh12"][1])
+        chol = np.linalg.cholesky(sp.laplacian().toarray()[1:, 1:])
+    tx, tit, trel = tpcg.pcg_torch(
+        torch.as_tensor(L, dtype=torch.float32),
+        torch.as_tensor(b, dtype=torch.float32),
+        None if chol is None else torch.as_tensor(chol, dtype=torch.float32),
+        tol=1e-5, maxiter=2000)
+    jx, jit, jrel = jpcg.pcg_jax(
+        jnp.asarray(L, jnp.float32), jnp.asarray(b, jnp.float32),
+        None if chol is None else jnp.asarray(chol, jnp.float32),
+        tol=1e-5, maxiter=2000)
+    assert abs(tit - int(jit)) <= 2
+    assert float(trel) <= 1e-5 and float(jrel) <= 1e-5
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-3,
+                               atol=1e-3 * float(np.abs(np.asarray(jx)).max()))
+
+
+def test_pcg_host_is_the_reference_copy(graphs):
+    g = graphs[1]["grid"]
+    b = np.random.default_rng(0).standard_normal(g.n)
+    b -= b.mean()
+    t = tpcg.pcg_host(g.laplacian(), b, tol=1e-8, maxiter=5000)
+    j = jpcg.pcg_host(graphs[0]["grid"].laplacian(), b, tol=1e-8,
+                      maxiter=5000)
+    assert t.converged and t.iters == j.iters
+    np.testing.assert_array_equal(t.x, j.x)
 
 
 @pytest.mark.parametrize("kind", ["er_sample", "er_exact"])
@@ -127,7 +242,7 @@ def test_unported_score_stages_raise(graphs, kind):
         TPipeline(cfg).run(graphs[1]["mesh12"], device="cpu")
 
 
-@pytest.mark.parametrize("engine", ["distributed", "multipass"])
+@pytest.mark.parametrize("engine", ["distributed"])
 def test_unported_engines_raise(graphs, engine):
     cfg = tconfig(alpha=0.05, chunk=CHUNK, engine=engine)
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -7,6 +7,9 @@
     reference's ``ref`` solver: per-column iterations within +-2 (the
     tolerance the reference uses between its planes), re-based x allclose
     (rtol 1e-3), relres <= tol.
+  * ``matvec_impl="kernel"`` (K5 per column) against the reference's
+    kernel route (+-2 iterations, re-based x rtol 1e-3) and against the
+    port's ``"ref"`` route (+-0 iterations, bitwise x).
   * the batched-columns property (a column solved in a batch equals it
     solved alone, +-0 iterations), asserted on the port by itself.
 Graphs: the tiny suite plus mesh2d(12, 12); both packages on the CPU.
@@ -143,8 +146,6 @@ def test_sharded_paths_raise():
     with pytest.raises(NotImplementedError):
         tpcg.make_solver(idx, val, precond="none", mesh=object(),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="K5"):
-        tpcg.make_matvec(idx, val, "kernel")
 
 
 # -- solves ------------------------------------------------------------------
@@ -172,6 +173,38 @@ def test_slice_end_to_end_matches_reference(hierarchies, ref_solves, name):
                              device="cpu")(b, tol=TOL)
     assert torch.equal(fused.iters, res.iters)
     assert torch.equal(fused.x, res.x)
+
+
+@pytest.mark.parametrize("name", ["grid", "ba", "mesh12"])
+def test_kernel_route_matches_reference_kernel_route(hierarchies, name):
+    """``matvec_impl="kernel"`` (K5 per column; its plain version on the
+    CPU) against the reference's kernel route (its Pallas spmv per column,
+    interpret mode) on each package's own hierarchy: +-2 iterations,
+    re-based x rtol 1e-3; and against the port's ``"ref"`` route: +-0
+    iterations and bitwise x."""
+    jh, th = hierarchies[name]
+    b = _rhs(JG[name].n, 2, seed=9)
+    jidx, jval = jpcg.ell_laplacian(JG[name])
+    want = jpcg.make_solver(jidx, jval, hierarchy=jh, matvec_impl="kernel")(
+        jnp.asarray(b), tol=TOL)
+    idx, val = tpcg.ell_laplacian(TG[name], device="cpu")
+    res = tpcg.make_solver(idx, val, th, matvec_impl="kernel",
+                           device="cpu")(b, tol=TOL)
+    _check_against_ref(res, want)
+    plain = tpcg.make_solver(idx, val, th, matvec_impl="ref",
+                             device="cpu")(b, tol=TOL)
+    assert torch.equal(res.iters, plain.iters)
+    assert torch.equal(res.x, plain.x)
+
+
+def test_kernel_matvec_stacks_one_column_at_a_time():
+    idx, val = tpcg.ell_laplacian(TG["ba"], device="cpu")
+    x = torch.as_tensor(_rhs(TG["ba"].n, 3, seed=2))
+    y = tpcg.make_matvec(idx, val, "kernel")(x)
+    assert torch.equal(y, tpcg.make_matvec(idx, val, "fused")(x))
+    assert torch.equal(y, tpcg.make_matvec(idx, val, "ref")(x))
+    with pytest.raises(ValueError, match="unknown matvec impl"):
+        tpcg.make_matvec(idx, val, "pallas")
 
 
 @pytest.mark.parametrize("precond", ["none", "hierarchy"])
