@@ -5,13 +5,15 @@
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-  1. build the CUDA kernels K1-K5 from ``src/repro_torch/kernels/csrc``;
+  1. build the CUDA kernels K1-K6 from ``src/repro_torch/kernels/csrc``;
   2. hold each kernel against its plain PyTorch version on the card at
      edge sizes (n = 31, 100, 257; k = 1, 3, 8, 16; x with more rows than
      the slab for K1): K1 bitwise, K2 and K3 within rtol 1e-5 and
      atol 1e-5 * max|input| (the kernels round every operation on its own,
      so they are expected bitwise too); K4 bitwise on the reference test's
      (K, m, c1) cases and 12 seeded ones, K5 bitwise at n = 31, 100, 257;
+     K6 bitwise at B in {1, 3}, S in {1, 16, 37}, di in {8, 100, 8192},
+     state in {4, 16}, float32 and bf16 inputs;
   3. the main path: ``build_hierarchy`` on ``mesh2d(1024, 1024, seed=0)``
      (n = 1,048,576, m = 3,141,633; the scale of the paper's NACA0015 FEM
      mesh), then ``make_solver(matvec_impl="fused")`` and one solve of 8
@@ -35,13 +37,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      tol), a warm flush (``mem``), a restarted service on the same disk
      tier (``disk``), all bitwise equal; then a ``matvec_impl="kernel"``
      service (K5) on one 2-column request, bitwise equal to the fused one;
-  7. each kernel timed at the main path's shapes beside its plain version,
+  7. the LM serving path: falcon-mamba-7b at full width (64 layers,
+     7,006,326,784 random parameters from ``torch.Generator("cuda")``
+     seed 0), ``repro_torch.serve.Engine(batch=4)`` answering 4 greedy
+     requests of 2048, 1536, 1024 and 512 prompt tokens, 32 new tokens
+     each: prefill ms, decode ms a step, tokens/s, peak memory and K6
+     launches (64, one a layer); finite logits, ids in range, a second
+     generate with the same ids; a 64-token prompt's prefill logits (K6)
+     against 64 decode steps, in float32 compute at full depth within
+     rtol = atol = 1e-4 and in bf16 on the first 2 layers within rtol =
+     atol = 2e-2 (the bar of the reference's prefill-vs-decode test, at
+     its depth; bf16 at 64 layers is printed, see PERF.md), and the 2-layer
+     model on the card against the CPU (plain scan) within 2e-2;
+  8. each kernel timed at its path's shapes beside its plain version,
      its byte/operation bound and, for K1 and K5, ``torch.sparse.mm`` on a
-     CSR copy of the operator.
+     CSR copy of the operator; K6 at layer 0's prefill inputs, with the
+     exponentials' issue-rate term printed beside its bound.
 
 Each path's launch counts are set to 0 just before it and read just after:
 K1-K3 over phase 3, K4 over phase 5's kernel engine, K5 over phase 6's
-kernel-route solve.
+kernel-route solve, K6 over phase 7's first ``generate``.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -67,6 +82,14 @@ TOL, MAXITER, K = 1e-3, 2000, 8
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it, in MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout.split()
+    return float(out[0])
 
 
 def time_ms(torch, fn, reps: int = 20, queued: bool = True) -> float:
@@ -550,6 +573,253 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
     return records
 
 
+def k6_edge_checks(torch, kops, ref):
+    """K6 against its plain version at the edge shapes: B in {1, 3}, S in
+    {1, 16, 37}, di in {8, 100, 8192} (100: not a multiple of the block),
+    state in {4, 16}, float32 and bf16 inputs, non-zero h0; bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n = 0
+    for B in (1, 3):
+        for S in (1, 16, 37):
+            for di in (8, 100, 8192):
+                for state in (4, 16):
+                    shapes = ((B, S, di), (B, S, di), (B, S, state),
+                              (B, S, state))
+                    x1, dt, Bm, Cm = (torch.randn(s, generator=gen,
+                                                  device="cuda")
+                                      for s in shapes)
+                    dt = 0.1 * dt.abs()
+                    A = -torch.rand((di, state), generator=gen,
+                                    device="cuda") - 0.1
+                    h0 = torch.randn((B, di, state), generator=gen,
+                                     device="cuda")
+                    for dtype in (torch.float32, torch.bfloat16):
+                        args = [t.to(dtype) for t in (x1, dt, Bm, Cm)]
+                        args += [A, h0]
+                        y, hT = kops.ssm_scan(*args)
+                        y_r, h_r = ref.ssm_scan_ref(*args)
+                        if not (torch.equal(y, y_r) and torch.equal(hT, h_r)):
+                            err = max(float((y - y_r).abs().max()),
+                                      float((hT - h_r).abs().max()))
+                            fail(f"K6 not bitwise equal at B={B} S={S} "
+                                 f"di={di} state={state} {dtype} (max abs "
+                                 f"err {err:.3e})")
+                        n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def lm_path(np, torch, kops):
+    """The LM serving path at full width: falcon-mamba-7b, all 64 layers,
+    random weights from a seed, ``Engine(batch=4)`` answering 4 greedy
+    requests of 2048, 1536, 1024 and 512 prompt tokens (left-padded to
+    S = 2048), 32 new tokens each, twice.  Returns the K6 launch count of
+    the first run and the inputs of its first K6 launch (layer 0)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as mm
+    from repro_torch.serve import Engine, Request
+
+    cfg = get_config("falcon-mamba-7b")
+    t0 = time.perf_counter()
+    model = mm.init_params(
+        cfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = mm.param_count(model)
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"LM path: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, state {cfg.ssm_state}, "
+          f"vocab {mm.vocab_padded(cfg)}, {cfg.dtype} compute: {n_params} "
+          f"parameters, {w_bytes} weight bytes ({cfg.param_dtype}), init "
+          f"{init_s:.3f} s", flush=True)
+    if n_params != 7_006_326_784:
+        fail(f"falcon-mamba-7b has {n_params} parameters, want 7006326784")
+
+    rng = np.random.default_rng(0)
+    lens, max_new = (2048, 1536, 1024, 512), 32
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    t0 = time.perf_counter()
+    eng = Engine(cfg, model, batch=4, cache_len=max(lens) + max_new,
+                 device="cuda")
+    torch.cuda.synchronize()
+    print(f"engine setup (weights cast once to {cfg.dtype}): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    # time prefill and each decode step (the engine reads every step's
+    # ids back to the host, so steps do not overlap), check that their
+    # logits are finite, and keep the inputs of the first K6 launch
+    steps, first = [], []
+    prefill, decode_step, scan = mm.prefill, mm.decode_step, kops.ssm_scan
+
+    def timed(fn, kind):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            steps.append((kind, (time.perf_counter() - t0) * 1e3,
+                          bool(torch.isfinite(out[0]).all())))
+            return out
+        return run
+
+    def recording(*args):
+        if not first:
+            first.append([a.clone() for a in args])
+        return scan(*args)
+
+    def serve(label):
+        steps.clear()
+        mm.prefill, mm.decode_step = (timed(prefill, "prefill"),
+                                      timed(decode_step, "decode"))
+        kops.ssm_scan = recording
+        try:
+            kops.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = eng.generate([Request(prompt=p, max_new=max_new)
+                                for p in prompts])
+            wall_s = time.perf_counter() - t0
+            launches = kops.launch_counts()
+        finally:
+            mm.prefill, mm.decode_step, kops.ssm_scan = (prefill,
+                                                         decode_step, scan)
+        pre = [ms for kind, ms, _ in steps if kind == "prefill"]
+        dec = [ms for kind, ms, _ in steps if kind == "decode"]
+        n_tok = sum(len(o) for o in out)
+        print(f"LM {label}: prefill {pre[0]:.2f} ms (B=4, S={max(lens)}), "
+              f"decode {np.mean(dec):.3f} ms a step (mean of {len(dec)}; "
+              f"min {min(dec):.3f}, max {max(dec):.3f}), {n_tok} tokens in "
+              f"{wall_s:.3f} s: {n_tok / wall_s:.2f} generated tokens/s "
+              f"({4 / (np.mean(dec) / 1e3):.2f} tokens/s over decode "
+              f"steps); peak memory {torch.cuda.max_memory_allocated()} "
+              f"bytes; K6 launches {launches['ssm_scan']}", flush=True)
+        if len(pre) != 1 or len(dec) != max_new - 1:
+            fail(f"LM {label}: {len(pre)} prefills and {len(dec)} decode "
+                 f"steps, want 1 and {max_new - 1}")
+        if not all(ok for _, _, ok in steps):
+            fail(f"LM {label}: non-finite logits")
+        if [len(o) for o in out] != [max_new] * 4 or any(
+                o.min() < 0 or o.max() >= cfg.vocab for o in out):
+            fail(f"LM {label}: ids out of [0, {cfg.vocab}) or of the wrong "
+                 f"count")
+        others = {k: v for k, v in launches.items() if v and k != "ssm_scan"}
+        if others:
+            fail(f"LM {label}: launched other kernels {others}")
+        return out, launches["ssm_scan"]
+
+    out1, k6_launches = serve("serve")
+    out2, _ = serve("serve again")
+    print(f"LM ids, request 0: {out1[0][:8].tolist()}...", flush=True)
+    if not all(np.array_equal(a, b) for a, b in zip(out1, out2)):
+        fail("a second generate returned other ids")
+    if k6_launches != cfg.n_layers:
+        fail(f"K6 launched {k6_launches} times over the LM path, want "
+             f"{cfg.n_layers} (one a layer, in prefill)")
+
+    # prefill (K6) against the same 64 tokens decoded one by one: gated in
+    # float32 compute at full depth and in bf16 at the reference test's
+    # depth (2 layers, below); bf16 at full depth is printed, not gated:
+    # cuBLAS sums the 64-row and the 1-row products in other orders, and
+    # bf16's 1-ULP partings grow over 64 layers (PERF.md, Findings)
+    bf16, f32 = dict(rtol=2e-2, atol=2e-2), dict(rtol=1e-4, atol=1e-4)
+    toks = torch.as_tensor(prompts[3][:64][None], device="cuda")
+
+    def prefill_vs_decode(view, c):
+        lp, _ = mm.prefill(view, c, toks, 64)
+        caches = mm.init_cache(c, 1, 64, device="cuda")
+        for t in range(64):
+            ld, caches = mm.decode_step(view, c, caches, toks[:, t:t + 1], t)
+        err = float((lp - ld).abs().max())
+        print(f"LM prefill vs 64 decode steps, {c.n_layers} layers, "
+              f"{c.dtype}: max abs err {err:.4e}, logits max |.| "
+              f"{float(ld.abs().max()):.4f}", flush=True)
+        return lp, ld, err
+
+    prefill_vs_decode(eng.params, cfg)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lp, ld, err = prefill_vs_decode(mm.cast_for_compute(model, cfg32), cfg32)
+    if not torch.allclose(lp, ld, **f32):
+        fail(f"full-width float32 prefill and decode part: max abs err "
+             f"{err:.3e}")
+
+    # two layers of the same weights on the card (K6) and on the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    two = mm.MambaLM(cfg2, device="meta")
+    keep = set(two.state_dict())
+    two.load_state_dict({k: v for k, v in model.state_dict().items()
+                         if k in keep}, assign=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    out = {}
+    lp, ld, err = prefill_vs_decode(mm.cast_for_compute(two, cfg2), cfg2)
+    if not torch.allclose(lp, ld, **bf16):
+        fail(f"2-layer bf16 prefill and decode part: max abs err {err:.3e}")
+    for dev in ("cuda", "cpu"):
+        view = mm.cast_for_compute(two, cfg2, device=dev)
+        kops.reset_launches()
+        t0 = time.perf_counter()
+        logits, caches = mm.prefill(view, cfg2, toks.to(dev), 64)
+        out[dev] = (logits.cpu(), caches[1]["h"].cpu(),
+                    kops.launch_counts()["ssm_scan"],
+                    time.perf_counter() - t0)
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    herr = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    print(f"LM 2 layers, card vs CPU (64 tokens): logits max abs err "
+          f"{err:.4e}, layer-1 h max abs err {herr:.4e}; K6 launches "
+          f"{out['cuda'][2]} / {out['cpu'][2]}; card {out['cuda'][3]:.3f} s, "
+          f"CPU {out['cpu'][3]:.3f} s", flush=True)
+    if out["cuda"][2] != 2 or out["cpu"][2] != 0:
+        fail("the card did not run K6 in each layer, or the CPU did")
+    if not torch.allclose(out["cuda"][0], out["cpu"][0], **bf16):
+        fail(f"2-layer model: card and CPU logits part by {err:.3e}")
+    del two
+    torch.cuda.empty_cache()
+    return k6_launches, first[0]
+
+
+def k6_record(torch, kops, ref, args, launches, card_clock_mhz):
+    """K6 at layer 0's real prefill inputs: error against the plain
+    version, device ms beside the plain version's and the bound, with the
+    exponentials' issue-rate term printed beside it."""
+    bf_ms = time_ms(torch, lambda: kops.ssm_scan(*args))
+    args = [a.float().contiguous() for a in args]
+    x1, dt, Bm, Cm, A, h0 = args
+    B, S, di = x1.shape
+    state = A.shape[1]
+    y, hT = kops.ssm_scan(*args)
+    y_r, h_r = ref.ssm_scan_ref(*args)
+    err = max(float((y - y_r).abs().max()), float((hT - h_r).abs().max()))
+    if not (torch.equal(y, y_r) and torch.equal(hT, h_r)):
+        fail(f"K6 is not bitwise equal to its plain version at the LM "
+             f"path's shape (max abs err {err:.3e})")
+    cells = B * S * di * state
+    nbytes = 4 * (3 * B * S * di + 2 * B * S * state + di * state
+                  + 2 * B * di * state)
+    bms, by = bound_ms(nbytes, 6.0 * cells + B * S * di)
+    sfu_ms = cells / (16 * 132 * card_clock_mhz * 1e6) * 1e3
+    rec = dict(
+        name="ssm_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:53",
+        launches=launches, max_abs_err=err,
+        ms=time_ms(torch, lambda: kops.ssm_scan(*args)),
+        plain_ms=time_ms(torch, lambda: ref.ssm_scan_ref(*args), reps=2),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32 operations": (6.0 * cells + B * S * di) / F32_FLOPS * 1e3,
+             "expf issue": sfu_ms}
+    print(f"K6 shapes: B={B} S={S} di={di} state={state}; {nbytes} bytes, "
+          f"{cells} (b, t, d, n) cells; terms (ms) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
+          + f" (expf: 16 a clock an SM, 132 SMs, {card_clock_mhz} MHz); "
+          f"binding term: {max(terms, key=terms.get)}; K6 {rec['ms']:.4f} ms "
+          f"on f32 inputs, {bf_ms:.4f} ms on the path's bf16 inputs (casts "
+          f"included)", flush=True)
+    return rec
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -612,6 +882,8 @@ def main() -> int:
     n_k4 = k45_edge_checks(np, torch, kops, ref)
     print(f"edge sizes: {n_k4} K4 cases bitwise, K5 bitwise at n = 31, 100, "
           f"257", flush=True)
+    n_k6 = k6_edge_checks(torch, kops, ref)
+    print(f"edge sizes: {n_k6} K6 cases bitwise", flush=True)
     phase_done("edge_checks")
 
     # ---- phase 3: the main path -----------------------------------------
@@ -711,10 +983,16 @@ def main() -> int:
     k5_launches = service_path(np, torch, g, b, kops)
     phase_done("service_path")
 
-    # ---- phase 7: kernels at the main path's shapes ----------------------
+    # ---- phase 7: the LM serving path (K6) -------------------------------
+    k6_launches, k6_args = lm_path(np, torch, kops)
+    phase_done("lm_path")
+
+    # ---- phase 8: kernels at their paths' shapes -------------------------
     records = kernel_records(torch, vf, ref, hier, idx, val, counts)
     records += k45_records(np, torch, kops, ref, k4_args, k4_launches, idx,
                            val, k5_launches)
+    records.append(k6_record(torch, kops, ref, k6_args, k6_launches,
+                             max_sm_clock_mhz()))
     phase_done("kernel_timing")
     print(f"phase seconds: {json.dumps(phase_s)}, total "
           f"{sum(phase_s.values()):.3f} s", flush=True)

@@ -15,7 +15,7 @@ import torch
 
 launches = dict.fromkeys(("spmv_ell_batched", "cheby_step",
                           "restrict_residual", "similarity_mark",
-                          "spmv_ell"), 0)
+                          "spmv_ell", "ssm_scan"), 0)
 
 
 def count(name: str) -> None:

@@ -2,7 +2,7 @@
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors (see :mod:`repro_torch.kernels._launch`).
-Kernel K6 (``ssm_scan``) of the reference is not ported yet.
+Every kernel of the reference (K1-K6) has its CUDA counterpart.
 
 :func:`launch_counts` reads every kernel's launch count and
 :func:`reset_launches` sets them all to zero, so a run can show which
@@ -14,6 +14,7 @@ from repro_torch.kernels import _launch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import similarity as _similarity
 from repro_torch.kernels import spmv_ell as _spmv_ell
+from repro_torch.kernels import ssm_scan as _ssm_scan
 from repro_torch.kernels._launch import reset_launches  # noqa: F401
 from repro_torch.kernels.spmv_ell import to_ell  # noqa: F401
 from repro_torch.kernels.vcycle_fused import (  # noqa: F401
@@ -21,7 +22,7 @@ from repro_torch.kernels.vcycle_fused import (  # noqa: F401
 
 
 def launch_counts() -> dict:
-    """``{kernel name: launches}`` over K1-K5 since the last reset."""
+    """``{kernel name: launches}`` over K1-K6 since the last reset."""
     return dict(_launch.launches)
 
 
@@ -44,6 +45,7 @@ def spmv(idx, val, x):
 
 
 spmv_batched = spmv_ell_batched
+ssm_scan = _ssm_scan.ssm_scan   # K6; any d_inner
 similarity_mark_ref = _ref.similarity_mark_ref
 spmv_ref = _ref.spmv_ell_ref
 spmv_batched_ref = _ref.spmv_ell_batched_ref

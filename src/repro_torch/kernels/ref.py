@@ -3,14 +3,16 @@
 Each function computes exactly what its kernel computes, in the same
 operation order: the CPU tests run them, the wrappers
 (:mod:`~repro_torch.kernels.vcycle_fused`,
-:mod:`~repro_torch.kernels.similarity`, :mod:`~repro_torch.kernels.spmv_ell`)
-take them for CPU tensors, and ``chip_smoke.py`` holds each kernel against
-its plain version on the card.
+:mod:`~repro_torch.kernels.similarity`, :mod:`~repro_torch.kernels.spmv_ell`,
+:mod:`~repro_torch.kernels.ssm_scan`) take them for CPU tensors, and
+``chip_smoke.py`` holds each kernel against its plain version on the card.
 
 The ELL sums run over ``l`` in order, one rounded multiply and one rounded
 add per term; the kernels are built without FMA contraction, so K1 and K5
 agree bit for bit with their plain versions on the card.  K4's output is
-boolean, so it is bit-identical whatever order the work runs in.
+boolean, so it is bit-identical whatever order the work runs in.  K6's
+scan rounds each product and sum on its own and sums over the state in
+ascending order (:func:`ssm_readout`), as its kernel does.
 """
 from __future__ import annotations
 
@@ -117,3 +119,34 @@ def similarity_mark_ref(csu, csv, cbeta, cseg, esu, esv, eseg):
         sim &= cseg[:, None] == eseg[None, lo:hi]
         out[lo:hi] = sim.any(dim=0)
     return out
+
+
+def ssm_readout(h, C):
+    """``y[..., d] = sum_n h[..., d, n] * C[..., n]``, summed n = 0, 1, ...
+    in order (one rounded multiply and one rounded add per term): the
+    fixed order that K6 sums in, not ``torch.sum``'s.  ``h [B, di, state]``,
+    ``C [B, state]`` -> ``[B, di]``."""
+    acc = h[..., 0] * C[:, None, 0]
+    for n in range(1, h.shape[-1]):
+        acc = acc + h[..., n] * C[:, None, n]
+    return acc
+
+
+def ssm_scan_ref(x1, dt, Bm, Cm, A, h0):
+    """The Mamba1 selective scan of K6 (``repro/kernels/ssm_scan.py``
+    ``_scan_kernel``), every input cast to float32 first as the reference's
+    wrapper does: per step ``da = exp(dt * A)``, ``dbx = (dt * x) * B``,
+    ``h = da * h + dbx``, ``y = sum_n h * C`` (:func:`ssm_readout`).
+
+    x1/dt ``[B, S, di]``; Bm/Cm ``[B, S, state]``; A ``[di, state]``;
+    h0 ``[B, di, state]``.  Returns y ``[B, S, di]`` (before the D skip) and
+    hT ``[B, di, state]``."""
+    x1, dt, Bm, Cm, A, h = (t.float() for t in (x1, dt, Bm, Cm, A, h0))
+    y = torch.empty_like(x1)
+    for t in range(x1.shape[1]):
+        dt_t = dt[:, t]
+        da = torch.exp(dt_t[:, :, None] * A)
+        dbx = (dt_t * x1[:, t])[:, :, None] * Bm[:, t, None, :]
+        h = da * h + dbx
+        y[:, t] = ssm_readout(h, Cm[:, t])
+    return y, h

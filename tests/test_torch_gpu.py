@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K5 against their plain PyTorch versions, and the
-port's service, on the card.
+"""The CUDA kernels K1-K6 against their plain PyTorch versions, and the
+port's service and LM serving path, on the card.
 
 Every ``gpu``-marked test needs a CUDA device and skips without one
 (decided in a fixture).  The file imports no JAX, so it runs on a machine
@@ -20,10 +20,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core.graph import mesh2d  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import vcycle_fused as tvf  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.solver import (SolveRequest, SolverService,  # noqa: E402
                                 build_hierarchy, ell_laplacian, make_solver)
 from repro_torch.solver.hierarchy import aggregate_csr  # noqa: E402
@@ -195,6 +197,83 @@ def test_gpu_service_matches_cpu_service(cuda):
     np.testing.assert_array_equal(rk.iters, rf.iters)
 
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("S", [1, 16, 37])
+@pytest.mark.parametrize("di", [8, 100, 8192])
+@pytest.mark.parametrize("state", [4, 16])
+def test_gpu_k6_bitwise_equal_to_plain(cuda, B, S, di, state):
+    """K6 against its plain version on the card, float32 and bf16 inputs,
+    non-zero h0, di not a multiple of the block; each launch counted."""
+    gen = torch.Generator(device=cuda).manual_seed(B * 1000 + S * 10 + di)
+    x1 = torch.randn((B, S, di), generator=gen, device=cuda)
+    dt = 0.1 * torch.rand((B, S, di), generator=gen, device=cuda)
+    Bm = torch.randn((B, S, state), generator=gen, device=cuda)
+    Cm = torch.randn((B, S, state), generator=gen, device=cuda)
+    A = -torch.rand((di, state), generator=gen, device=cuda) - 0.1
+    h0 = torch.randn((B, di, state), generator=gen, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in (x1, dt, Bm, Cm)] + [A, h0]
+        before = kops.launch_counts()["ssm_scan"]
+        y, hT = kops.ssm_scan(*args)
+        assert kops.launch_counts()["ssm_scan"] == before + 1
+        y_r, h_r = kref.ssm_scan_ref(*args)
+        assert y.device.type == "cuda" and y.dtype == torch.float32
+        assert torch.equal(y, y_r) and torch.equal(hT, h_r)
+
+
+@pytest.mark.gpu
+def test_gpu_k6_rejects_what_it_cannot_take(cuda):
+    x = torch.zeros((1, 4, 8), device=cuda)
+    with pytest.raises(ValueError):   # no instance for state 5
+        kops.ssm_scan(x, x, torch.zeros((1, 4, 5), device=cuda),
+                      torch.zeros((1, 4, 5), device=cuda),
+                      torch.zeros((8, 5), device=cuda),
+                      torch.zeros((1, 8, 5), device=cuda))
+    with pytest.raises(ValueError):   # Cm of another length
+        kops.ssm_scan(x, x, torch.zeros((1, 4, 4), device=cuda),
+                      torch.zeros((1, 3, 4), device=cuda),
+                      torch.zeros((8, 4), device=cuda),
+                      torch.zeros((1, 8, 4), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_reduced_model_matches_cpu(cuda, dtype):
+    """Reduced falcon-mamba, the same weights on the card (K6 in every
+    layer's prefill) and on the CPU (the plain scan): prefill logits and
+    states, then two decode steps, within the float32 bar (rtol, atol
+    1e-5) or the bf16 bar (2e-2); the devices' matmuls sum in other
+    orders."""
+    import dataclasses
+
+    cfg = dataclasses.replace(reduced(get_config("falcon-mamba-7b")),
+                              dtype=dtype)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    host = tmodel.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 32)), dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = tmodel.cast_for_compute(host, cfg, device=dev)
+        before = kops.launch_counts()["ssm_scan"]
+        logits, caches = tmodel.prefill(model, cfg, toks.to(dev), 32)
+        launched = kops.launch_counts()["ssm_scan"] - before
+        steps = [logits]
+        for t in range(2):
+            logits, caches = tmodel.decode_step(
+                model, cfg, caches, toks[:, t:t + 1].to(dev), 32 + t)
+            steps.append(logits)
+        out[str(dev)] = (launched, [s.cpu() for s in steps],
+                         [c["h"].cpu() for c in caches])
+    assert out["cpu"][0] == 0 and out["cuda"][0] == cfg.n_layers
+    for a, b in zip(out["cuda"][1] + out["cuda"][2],
+                    out["cpu"][1] + out["cpu"][2]):
+        torch.testing.assert_close(a, b, **tol)
+
 def test_port_and_chip_smoke_import_no_jax():
     """Importing every module of repro_torch leaves neither ``jax`` nor
     ``repro`` in ``sys.modules`` (nothing blocked: a stray import would
@@ -216,7 +295,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          text=True, cwd=src, timeout=120,
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 28
+    assert int(out.stdout.strip()) >= 51
     with open(os.path.join(root, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
     names = set()

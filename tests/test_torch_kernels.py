@@ -1,4 +1,4 @@
-"""The port's kernels K1-K5 (repro_torch.kernels) against the JAX package.
+"""The port's kernels K1-K6 (repro_torch.kernels) against the JAX package.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; these are
 held against the reference's jnp path and against its Pallas kernels in
@@ -20,6 +20,8 @@ from repro.core.device_graph import DeviceGraph as JDeviceGraph  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import vcycle_fused as jvf  # noqa: E402
 from repro.kernels.spmv_ell import to_ell as jto_ell  # noqa: E402
+from repro.kernels.ssm_scan import ssm_scan as jssm_scan  # noqa: E402
+from repro.kernels.ssm_scan import ssm_scan_ref as jssm_scan_ref  # noqa: E402
 from repro.pipeline import pdgrass_config as jconfig  # noqa: E402
 from repro.solver import device_pcg as jpcg  # noqa: E402
 from repro.solver.hierarchy import build_hierarchy as jbuild  # noqa: E402
@@ -286,3 +288,60 @@ def test_k5_plain_matches_reference(n):
     ji, jv, jx = map(jnp.asarray, (idx, val, x))
     _close(got, jops.spmv_ref(ji, jv, jx), val, x)
     _close(got, jops.spmv(ji, jv, jx, tile_n=32), val, x)
+
+
+# -- K6 ------------------------------------------------------------------------
+
+def _scan_inputs(seed, B, S, di, state):
+    """Drawn as the reference's kernel test draws them (non-zero h0)."""
+    rng = np.random.default_rng(seed)
+    x1 = rng.standard_normal((B, S, di)).astype(np.float32)
+    dt = (0.1 * rng.random((B, S, di))).astype(np.float32)
+    Bm = rng.standard_normal((B, S, state)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, state)).astype(np.float32)
+    A = -np.abs(rng.standard_normal((di, state))).astype(np.float32)
+    h0 = rng.standard_normal((B, di, state)).astype(np.float32)
+    return x1, dt, Bm, Cm, A, h0
+
+
+@pytest.mark.parametrize("B,S,di,state,blk", [
+    (2, 16, 8, 4, 8),
+    (1, 64, 32, 16, 16),
+    (3, 32, 64, 8, 64),
+])
+def test_k6_plain_matches_reference(B, S, di, state, blk):
+    """K6's plain version (the CPU route of ``ops.ssm_scan``) against the
+    reference's Pallas kernel in interpret mode and its jnp oracle, at the
+    reference kernel test's shapes, rtol 1e-5 and atol 1e-5."""
+    args = _scan_inputs(B * S + di, B, S, di, state)
+    before = tops.launch_counts()
+    y, hT = tops.ssm_scan(*map(torch.as_tensor, args))
+    assert tops.launch_counts() == before
+    assert y.shape == (B, S, di) and hT.shape == (B, di, state)
+    assert y.dtype == hT.dtype == torch.float32
+    ja = list(map(jnp.asarray, args))
+    for want_y, want_h in (jssm_scan(*ja, blk=blk), jssm_scan_ref(*ja)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(hT.numpy(), np.asarray(want_h), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_k6_plain_casts_to_f32_and_sums_state_in_order():
+    """bf16 inputs are cast to float32 first (the reference wrapper's
+    casts), and y sums over the state in ascending order, one rounded
+    product and add per term, so a hand-written loop gives the same bits."""
+    args = [torch.as_tensor(a) for a in _scan_inputs(9, 2, 8, 12, 4)]
+    bf = [a.to(torch.bfloat16) for a in args[:4]] + args[4:]
+    y, hT = tops.ssm_scan(*bf)
+    y32, h32 = kref.ssm_scan_ref(*[a.float() for a in bf])
+    assert torch.equal(y, y32) and torch.equal(hT, h32)
+    x1, dt, Bm, Cm, A, h = (a.float() for a in bf)
+    for t in range(x1.shape[1]):
+        da = torch.exp(dt[:, t, :, None] * A)
+        h = da * h + (dt[:, t] * x1[:, t])[:, :, None] * Bm[:, t, None, :]
+        acc = h[..., 0] * Cm[:, t, None, 0]
+        for n in range(1, 4):
+            acc = acc + h[..., n] * Cm[:, t, None, n]
+        assert torch.equal(y[:, t], acc)
+    assert torch.equal(hT, h)
