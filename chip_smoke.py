@@ -8,12 +8,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   1. build the CUDA kernels K1-K6 from ``src/repro_torch/kernels/csrc``;
   2. hold each kernel against its plain PyTorch version on the card at
      edge sizes (n = 31, 100, 257; k = 1, 3, 8, 16; x with more rows than
-     the slab for K1): K1 bitwise, K2 and K3 within rtol 1e-5 and
-     atol 1e-5 * max|input| (the kernels round every operation on its own,
-     so they are expected bitwise too); K4 bitwise on the reference test's
-     (K, m, c1) cases and 12 seeded ones, K5 bitwise at n = 31, 100, 257;
-     K6 bitwise at B in {1, 3}, S in {1, 16, 37}, di in {8, 100, 8192},
-     state in {4, 16}, float32 and bf16 inputs;
+     the slab for K1): K1 and K3 bitwise, K3 also on a hub aggregate of 64
+     members, slab widths 3, 12 and 17 and a single aggregate; K2 within
+     rtol 1e-5 and atol 1e-5 * max|input| (it rounds every operation on
+     its own, so it is expected bitwise too); K4 bitwise on the reference
+     test's (K, m, c1) cases and 12 seeded ones, K5 bitwise at n = 31,
+     100, 257; K6 bitwise at B in {1, 3}, S in {1, 16, 37}, di in {8, 100,
+     8192}, state in {4, 8, 16}, float32 and bf16 inputs;
   3. the main path: ``build_hierarchy`` on ``mesh2d(1024, 1024, seed=0)``
      (n = 1,048,576, m = 3,141,633; the scale of the paper's NACA0015 FEM
      mesh), then ``make_solver(matvec_impl="fused")`` and one solve of 8
@@ -51,8 +52,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      model on the card against the CPU (plain scan) within 2e-2;
   8. each kernel timed at its path's shapes beside its plain version,
      its byte/operation bound and, for K1 and K5, ``torch.sparse.mm`` on a
-     CSR copy of the operator; K6 at layer 0's prefill inputs, with the
-     exponentials' issue-rate term printed beside its bound.
+     CSR copy of the operator; K3 also at every level's shapes (bitwise,
+     time, bound, launches a level); K6 at layer 0's prefill inputs as the
+     path gives them (bf16, B and C strided views) and cast to float32,
+     with the exponentials' issue-rate term printed beside its bound; and
+     the fused solve's device time a PCG trip (``torch.profiler`` over 30
+     trips).
 
 Each path's launch counts are set to 0 just before it and read just after:
 K1-K3 over phase 3, K4 over phase 5's kernel engine, K5 over phase 6's
@@ -134,6 +139,8 @@ def check_close(torch, name, got, want, scale):
 
 def edge_checks(torch, vf, ref):
     """K1-K3 against their plain versions at the regression sizes."""
+    from repro_torch.solver.hierarchy import aggregate_csr
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
     n_checked = 0
@@ -168,12 +175,41 @@ def edge_checks(torch, vf, ref):
             agg = torch.randint(0, nc, (n,), generator=gen, device=dev,
                                 dtype=torch.int32)
             agg[:nc] = torch.arange(nc, device=dev, dtype=torch.int32)
-            from repro_torch.solver.hierarchy import aggregate_csr
             perm, ptr, amax = aggregate_csr(agg, nc)
             got = vf.restrict_residual(idx_sq, val, perm, ptr, amax, r, z)
             want = ref.restrict_residual_ref(idx_sq, val, perm, ptr, amax,
                                              r, z)
-            check_close(torch, f"K3 n={n} k={k}", got, want, scale)
+            if not torch.equal(got, want):
+                fail(f"K3 not bitwise equal at n={n} k={k}")
+            n_checked += 1
+    # K3 on a hub aggregate (rows 0..63), slab widths other than the main
+    # path's 7 (17: past the kernel's template instances) and one
+    # aggregate of every row; k = 3 takes the per-column kernel
+    for case, n, L in (("hub", 200, 7), ("L3", 150, 3), ("L12", 150, 12),
+                       ("L17", 150, 17), ("one aggregate", 100, 7)):
+        idx = torch.randint(0, n, (n, L), generator=gen, device=dev,
+                            dtype=torch.int32)
+        val = torch.randn((n, L), generator=gen, device=dev)
+        if case == "hub":
+            agg = torch.cat([torch.zeros(64, device=dev, dtype=torch.int32),
+                             1 + torch.arange(n - 64, device=dev,
+                                              dtype=torch.int32) // 2])
+        elif case == "one aggregate":
+            agg = torch.zeros(n, device=dev, dtype=torch.int32)
+        else:
+            agg = torch.arange(n, device=dev, dtype=torch.int32) // 3
+        nc = int(agg.max()) + 1
+        perm, ptr, amax = aggregate_csr(agg, nc)
+        for k in (3, 8, 16):
+            r = torch.randn((n, k), generator=gen, device=dev)
+            z = torch.randn((n, k), generator=gen, device=dev)
+            want = ref.restrict_residual_ref(idx, val, perm, ptr, amax, r, z)
+            restrict = vf.make_fused_restrict_residual(idx, val, perm, ptr,
+                                                       amax)
+            if not (torch.equal(restrict(r, z), want) and torch.equal(
+                    vf.restrict_residual(idx, val, perm, ptr, amax, r, z),
+                    want)):
+                fail(f"K3 not bitwise equal on the {case} case at k={k}")
             n_checked += 1
     torch.cuda.synchronize()
     return n_checked
@@ -551,38 +587,113 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
             lev.idx, lev.val, inv_d, r, z, p_buf, **kw)),
         bound_ms=bms, bound_by=by, library_ms=None))
 
-    # K3: restrict + residual on level 0
-    args3 = (lev.idx, lev.val, lev.perm, lev.agg_ptr, lev.agg_max, r, z)
-    rk = vf.restrict_residual(*args3)
-    rr = ref.restrict_residual_ref(*args3)
-    err3 = check_close(torch, "K3 main-path", rk, rr,
-                       float(r.abs().max()))
-    nbytes = n * L * 8 + n * 4 + (nc + 1) * 4 + n * K * 4 * 2 + nc * K * 4
-    bms, by = bound_ms(nbytes, n * K * (2.0 * L + 2))
+    # K3: restrict + residual on every level, as the V-cycle runs it (the
+    # factory's closure, over the level's aggregate-order slab copy); the
+    # record holds level 0, the main path's launches of every level
+    levels = []
+    for i, lv in enumerate(hier.levels):
+        ln, lL = lv.idx.shape
+        lr, lz = ((r, z) if i == 0 else
+                  (torch.randn((ln, K), generator=gen, device="cuda")
+                   for _ in range(2)))
+        args3 = (lv.idx, lv.val, lv.perm, lv.agg_ptr, lv.agg_max, lr, lz)
+        restrict = vf.make_fused_restrict_residual(*args3[:5])
+        rk = restrict(lr, lz)
+        rr = ref.restrict_residual_ref(*args3)
+        if not torch.equal(rk, rr):
+            fail(f"K3 is not bitwise equal to its plain version at level "
+                 f"{i} (max abs err {float((rk - rr).abs().max()):.3e})")
+        lnc = lv.n_coarse
+        nbytes = (ln * lL * 8 + ln * 4 + (lnc + 1) * 4 + ln * K * 4 * 2
+                  + lnc * K * 4)
+        bms, by = bound_ms(nbytes, ln * K * (2.0 * lL + 2))
+        levels.append(dict(level=i, n=ln, L=lL, n_coarse=lnc,
+                           agg_max=lv.agg_max,
+                           ms=time_ms(torch, lambda: restrict(lr, lz)),
+                           bound_ms=bms, bound_by=by,
+                           max_abs_err=float((rk - rr).abs().max())))
+        if i == 0:
+            plain3 = time_ms(torch, lambda: ref.restrict_residual_ref(*args3))
+    # every V-cycle restricts once on every level
+    per_level, rest = divmod(counts["restrict_residual"], len(levels))
+    if rest:
+        fail(f"K3 launched {counts['restrict_residual']} times over "
+             f"{len(levels)} levels")
+    gap = 0.0
+    for row in levels:
+        row["launches"] = per_level
+        gap += per_level * (row["ms"] - row["bound_ms"])
+        print(f"K3 level: {json.dumps(row)}", flush=True)
+    print(f"K3 over all levels: {per_level} launches a level, "
+          f"{sum(row['ms'] for row in levels):.4f} ms a V-cycle (bound "
+          f"{sum(row['bound_ms'] for row in levels):.4f} ms); launch-weighted"
+          f" gap to the bound sum(launches * (ms - bound)) {gap:.3f} ms a "
+          f"solve", flush=True)
+    top = levels[0]
     records.append(dict(
         name="restrict_residual", route="cuda",
         source="src/repro_torch/kernels/csrc/restrict_residual.cu",
         replaces="src/repro/kernels/vcycle_fused.py:195",
-        launches=counts["restrict_residual"], max_abs_err=err3,
-        ms=time_ms(torch, lambda: vf.restrict_residual(*args3)),
-        plain_ms=time_ms(torch, lambda: ref.restrict_residual_ref(*args3)),
-        bound_ms=bms, bound_by=by, library_ms=None))
+        launches=counts["restrict_residual"], max_abs_err=top["max_abs_err"],
+        ms=top["ms"], plain_ms=plain3, bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=None))
     print(f"shapes: top level n={tn} L={tL} k={K}; level 0 n={n} L={L} "
           f"n_coarse={nc} agg_max={lev.agg_max}", flush=True)
 
     return records
 
 
+def trip_profile(torch, solver, b_dev, trips=30):
+    """The fused solve's wall and device time a PCG trip over ``trips``
+    trips (maxiter = trips, so every column runs them all): wall from an
+    unprofiled run, device time and kernel split from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    solver(b_dev, tol=TOL, maxiter=trips)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver(b_dev, tol=TOL, maxiter=trips)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / trips
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver(b_dev, tol=TOL, maxiter=trips)
+        torch.cuda.synchronize()
+    # device work only: kernels and copies, not the V-cycle's named ranges,
+    # which the trace repeats on the device timeline
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    if not evs:
+        fail("the profiler recorded no device time over the fused solve")
+    names = {}
+    for e in evs:
+        names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(names.values()) / 1e3 / trips
+    k3 = sum(us for name, us in names.items()
+             if "restrict_residual" in name) / 1e3 / trips
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
+    print(f"fused solve, {trips} trips: wall {wall_ms:.3f} ms a trip "
+          f"(unprofiled), device busy {busy_ms:.4f} ms a trip (share "
+          f"{busy_ms / wall_ms:.3f}), of it K3 {k3:.4f} ms; "
+          f"{len(evs) / trips:.0f} device ops a trip; top: " + "; ".join(
+              f"{name[:48]} {us / 1e3 / trips:.4f} ms" for name, us in top),
+          flush=True)
+
+
 def k6_edge_checks(torch, kops, ref):
     """K6 against its plain version at the edge shapes: B in {1, 3}, S in
-    {1, 16, 37}, di in {8, 100, 8192} (100: not a multiple of the block),
-    state in {4, 16}, float32 and bf16 inputs, non-zero h0; bitwise."""
+    {1, 16, 37}, di in {8, 100, 8192} (100: not a multiple of the block,
+    nor of 8, so its rows take the kernel's synchronous loads), state in
+    {4, 8, 16}, float32 and bf16 inputs, non-zero h0; then B and C as
+    strided views of one x_proj-like output (rank 8: 16-byte rows, the
+    cp.async path; rank 5: not); bitwise."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     n = 0
     for B in (1, 3):
         for S in (1, 16, 37):
             for di in (8, 100, 8192):
-                for state in (4, 16):
+                for state in (4, 8, 16):
                     shapes = ((B, S, di), (B, S, di), (B, S, state),
                               (B, S, state))
                     x1, dt, Bm, Cm = (torch.randn(s, generator=gen,
@@ -605,6 +716,23 @@ def k6_edge_checks(torch, kops, ref):
                                  f"di={di} state={state} {dtype} (max abs "
                                  f"err {err:.3e})")
                         n += 1
+    for rank, di in ((8, 96), (5, 100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            B, S, state = 3, 37, 16
+            x1 = torch.randn((B, S, di), generator=gen, device="cuda")
+            dt = 0.1 * torch.rand((B, S, di), generator=gen, device="cuda")
+            xdbc = torch.randn((B, S, rank + 2 * state), generator=gen,
+                               device="cuda").to(dtype)
+            Bm, Cm = xdbc[..., rank:rank + state], xdbc[..., rank + state:]
+            A = -torch.rand((di, state), generator=gen, device="cuda") - 0.1
+            h0 = torch.randn((B, di, state), generator=gen, device="cuda")
+            args = [x1.to(dtype), dt.to(dtype), Bm, Cm, A, h0]
+            y, hT = kops.ssm_scan(*args)
+            y_r, h_r = ref.ssm_scan_ref(*args)
+            if not (torch.equal(y, y_r) and torch.equal(hT, h_r)):
+                fail(f"K6 not bitwise equal on strided B/C views, rank "
+                     f"{rank}, {dtype}")
+            n += 1
     torch.cuda.synchronize()
     return n
 
@@ -665,8 +793,10 @@ def lm_path(np, torch, kops):
         return run
 
     def recording(*args):
-        if not first:
-            first.append([a.clone() for a in args])
+        if not first:   # copies that keep B and C's strided layout
+            first.append([torch.empty_strided(
+                a.size(), a.stride(), dtype=a.dtype,
+                device=a.device).copy_(a) for a in args])
         return scan(*args)
 
     def serve(label):
@@ -780,43 +910,51 @@ def lm_path(np, torch, kops):
 
 
 def k6_record(torch, kops, ref, args, launches, card_clock_mhz):
-    """K6 at layer 0's real prefill inputs: error against the plain
+    """K6 at layer 0's real prefill inputs as the path gives them (bf16, B
+    and C strided views of the x_proj output): error against the plain
     version, device ms beside the plain version's and the bound, with the
-    exponentials' issue-rate term printed beside it."""
-    bf_ms = time_ms(torch, lambda: kops.ssm_scan(*args))
-    args = [a.float().contiguous() for a in args]
+    exponentials' issue-rate term and the time on the same inputs cast to
+    float32 printed beside it."""
     x1, dt, Bm, Cm, A, h0 = args
     B, S, di = x1.shape
     state = A.shape[1]
-    y, hT = kops.ssm_scan(*args)
     y_r, h_r = ref.ssm_scan_ref(*args)
-    err = max(float((y - y_r).abs().max()), float((hT - h_r).abs().max()))
-    if not (torch.equal(y, y_r) and torch.equal(hT, h_r)):
-        fail(f"K6 is not bitwise equal to its plain version at the LM "
-             f"path's shape (max abs err {err:.3e})")
+    f32 = [a.float().contiguous() for a in (x1, dt, Bm, Cm)] + [A, h0]
+    errs = []
+    for ins in (args, f32):
+        y, hT = kops.ssm_scan(*ins)
+        errs.append(max(float((y - y_r).abs().max()),
+                        float((hT - h_r).abs().max())))
+        if not (torch.equal(y, y_r) and torch.equal(hT, h_r)):
+            fail(f"K6 is not bitwise equal to its plain version at the LM "
+                 f"path's shape on {ins[0].dtype} inputs (max abs err "
+                 f"{errs[-1]:.3e})")
     cells = B * S * di * state
-    nbytes = 4 * (3 * B * S * di + 2 * B * S * state + di * state
-                  + 2 * B * di * state)
+    nbytes = (2 * B * S * di * x1.element_size() + 4 * B * S * di
+              + 2 * B * S * state * Bm.element_size() + 4 * di * state
+              + 8 * B * di * state)
     bms, by = bound_ms(nbytes, 6.0 * cells + B * S * di)
     sfu_ms = cells / (16 * 132 * card_clock_mhz * 1e6) * 1e3
     rec = dict(
         name="ssm_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:53",
-        launches=launches, max_abs_err=err,
+        launches=launches, max_abs_err=errs[0],
         ms=time_ms(torch, lambda: kops.ssm_scan(*args)),
         plain_ms=time_ms(torch, lambda: ref.ssm_scan_ref(*args), reps=2),
         bound_ms=bms, bound_by=by, library_ms=None)
+    f32_ms = time_ms(torch, lambda: kops.ssm_scan(*f32))
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "f32 operations": (6.0 * cells + B * S * di) / F32_FLOPS * 1e3,
              "expf issue": sfu_ms}
-    print(f"K6 shapes: B={B} S={S} di={di} state={state}; {nbytes} bytes, "
-          f"{cells} (b, t, d, n) cells; terms (ms) "
+    print(f"K6 shapes: B={B} S={S} di={di} state={state}, {x1.dtype} "
+          f"inputs, B strides {Bm.stride()}; {nbytes} bytes, {cells} (b, t, "
+          f"d, n) cells; terms (ms) "
           + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
           + f" (expf: 16 a clock an SM, 132 SMs, {card_clock_mhz} MHz); "
           f"binding term: {max(terms, key=terms.get)}; K6 {rec['ms']:.4f} ms "
-          f"on f32 inputs, {bf_ms:.4f} ms on the path's bf16 inputs (casts "
-          f"included)", flush=True)
+          f"on the path's inputs, {f32_ms:.4f} ms on them cast to float32 "
+          f"(max abs err {errs[1]})", flush=True)
     return rec
 
 
@@ -877,8 +1015,8 @@ def main() -> int:
     # ---- phase 2: kernels against their plain versions at edge sizes ------
     phase_done("build")
     n_checked = edge_checks(torch, vf, ref)
-    print(f"edge sizes: {n_checked} (n, k) cases, K1 bitwise, K2/K3 "
-          f"allclose", flush=True)
+    print(f"edge sizes: {n_checked} cases, K1 and K3 bitwise, K2 allclose",
+          flush=True)
     n_k4 = k45_edge_checks(np, torch, kops, ref)
     print(f"edge sizes: {n_k4} K4 cases bitwise, K5 bitwise at n = 31, 100, "
           f"257", flush=True)
@@ -989,6 +1127,7 @@ def main() -> int:
 
     # ---- phase 8: kernels at their paths' shapes -------------------------
     records = kernel_records(torch, vf, ref, hier, idx, val, counts)
+    trip_profile(torch, solver, b_dev)
     records += k45_records(np, torch, kops, ref, k4_args, k4_launches, idx,
                            val, k5_launches)
     records.append(k6_record(torch, kops, ref, k6_args, k6_launches,

@@ -28,16 +28,19 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                      "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 SIGNATURES = {
     "repro_spmv_ell_batched": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_cheby_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                          _F, _F, _P],
-    "repro_restrict_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_restrict_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _P],
     "repro_similarity_mark": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _P],
     "repro_spmv_ell": [_P, _P, _P, _P, _I, _I, _P],
-    "repro_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_ssm_scan": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _I,
+                       _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

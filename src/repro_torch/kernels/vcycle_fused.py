@@ -18,7 +18,8 @@ Design notes for the card (the TPU kernels held whole levels in VMEM):
   * K2 is one launch per recurrence step, the combines fused into the
     matvec epilogue, z ping-ponging between two buffers.
   * K3 walks a CSR of aggregates built once at hierarchy build, so the sum
-    is deterministic without float atomics.
+    is deterministic without float atomics, reading a copy of the slabs in
+    aggregate order made once when the V-cycle is set up.
 
 :func:`cheby_coeffs` and :func:`cheby_recurrence` stay the one definition
 of the polynomial; the fused smoother applies the same step coefficients
@@ -161,9 +162,33 @@ def make_fused_chebyshev(idx, val, diag, rho: float, *,
 # K3: fused restrict + residual
 # ---------------------------------------------------------------------------
 
-def restrict_residual(idx, val, perm, agg_ptr, agg_max: int, r, z):
+MAX_L = 16   # K3's template instances: slab widths 1..MAX_L
+
+
+def aggregate_slabs(idx, val, perm):
+    """K3's copy of the ELL slabs in aggregate order: row ``m`` holds slab
+    row ``perm[m]``, padded with zero columns to ``4 * ceil(L / 4)`` (rows of
+    whole 16-byte words).  One more slab's bytes a level, made once when the
+    fused V-cycle is set up (:func:`make_fused_restrict_residual`)."""
+    n, L = idx.shape
+    width = -(-L // 4) * 4
+    rows = perm.long()
+    idx_agg = torch.zeros((n, width), dtype=idx.dtype, device=idx.device)
+    val_agg = torch.zeros((n, width), dtype=val.dtype, device=val.device)
+    idx_agg[:, :L] = idx[rows]
+    val_agg[:, :L] = val[rows]
+    return idx_agg, val_agg
+
+
+def restrict_residual(idx, val, perm, agg_ptr, agg_max: int, r, z,
+                      agg_slabs=None):
     """``rc[c] = sum_{i in aggregate c, ascending} (r - A z)[i]``,
-    ``[n_coarse, k]`` out; the fine residual is never materialized."""
+    ``[n_coarse, k]`` out; the fine residual is never materialized.
+
+    ``agg_slabs`` is :func:`aggregate_slabs` of ``(idx, val, perm)``; on the
+    card, where k is a multiple of 4 and L at most :data:`MAX_L`, the kernel
+    reads it and makes it first when it is not given.  The result does not
+    depend on it."""
     if not on_cuda(idx, val, perm, agg_ptr, r, z):
         return _ref.restrict_residual_ref(idx, val, perm, agg_ptr, agg_max,
                                           r, z)
@@ -180,18 +205,38 @@ def restrict_residual(idx, val, perm, agg_ptr, agg_max: int, r, z):
                          f" {tuple(perm.shape)}")
     n_coarse, k = agg_ptr.shape[0] - 1, r.shape[1]
     rc = torch.empty((n_coarse, k), dtype=torch.float32, device=r.device)
+    vec = (k % 4 == 0 and 1 <= L <= MAX_L
+           and r.data_ptr() % 16 == 0 and z.data_ptr() % 16 == 0)
+    copy = (None, None)
+    if vec:
+        copy = agg_slabs if agg_slabs is not None else \
+            aggregate_slabs(idx, val, perm)
+        width = -(-L // 4) * 4
+        for t, name, dtype in zip(copy, ("idx_agg", "val_agg"),
+                                  (torch.int32, torch.float32)):
+            require(t, name, dtype, 2)
+            if tuple(t.shape) != (n, width) or t.device != r.device:
+                raise ValueError(f"{name} has shape {tuple(t.shape)} on "
+                                 f"{t.device}, want ({n}, {width}) on "
+                                 f"{r.device}")
     check(library().repro_restrict_residual(
         idx.data_ptr(), val.data_ptr(), perm.data_ptr(), agg_ptr.data_ptr(),
-        r.data_ptr(), z.data_ptr(), rc.data_ptr(), n_coarse, L, k,
-        stream()), "restrict_residual")
+        ptr(copy[0]), ptr(copy[1]), r.data_ptr(), z.data_ptr(),
+        rc.data_ptr(), n_coarse, L, k, stream()), "restrict_residual")
     count("restrict_residual")
     return rc
 
 
 def make_fused_restrict_residual(idx, val, perm, agg_ptr,
                                  agg_max: int) -> Callable:
-    """Build ``restrict(r, z) -> rc [n_coarse, k]`` over one level."""
+    """Build ``restrict(r, z) -> rc [n_coarse, k]`` over one level; on the
+    card it makes the level's :func:`aggregate_slabs` once, here."""
+    agg_slabs = (aggregate_slabs(idx, val, perm)
+                 if on_cuda(idx, val, perm) and idx.shape[1] <= MAX_L
+                 else None)
+
     def restrict(r, z):
-        return restrict_residual(idx, val, perm, agg_ptr, agg_max, r, z)
+        return restrict_residual(idx, val, perm, agg_ptr, agg_max, r, z,
+                                 agg_slabs=agg_slabs)
 
     return restrict

@@ -44,7 +44,7 @@ def cuda():
 @pytest.mark.parametrize("n", [31, 100, 257])
 @pytest.mark.parametrize("k", [1, 3, 8, 16])
 def test_gpu_kernels_match_plain(cuda, n, k):
-    """K1 bitwise, K2 and K3 allclose (expected bitwise) on the card, and
+    """K1 and K3 bitwise, K2 allclose (expected bitwise) on the card, and
     each wrapper counts its launch."""
     gen = torch.Generator(device=cuda).manual_seed(n + k)
     L, nx = 5, n + 7
@@ -67,12 +67,61 @@ def test_gpu_kernels_match_plain(cuda, n, k):
     torch.testing.assert_close(zk, zr, rtol=1e-5, atol=1e-5)
     agg = torch.arange(n, device=cuda, dtype=torch.int32) % max(1, n // 3)
     perm, ptr, amax = aggregate_csr(agg, max(1, n // 3))
-    torch.testing.assert_close(
+    assert torch.equal(
         tvf.restrict_residual(idx, val, perm, ptr, amax, r, z),
-        kref.restrict_residual_ref(idx, val, perm, ptr, amax, r, z),
-        rtol=1e-5, atol=1e-5)
+        kref.restrict_residual_ref(idx, val, perm, ptr, amax, r, z))
     after = kops.launch_counts()
     assert all(after[name] == before[name] + 1 for name in V_CYCLE_KERNELS)
+
+
+def _k3_case(case, device):
+    """A level-like K3 problem: ``(idx, val, agg, n_coarse)``."""
+    n, L = {"hub": (200, 7), "L3": (150, 3), "L12": (150, 12),
+            "L17": (150, 17), "one_aggregate": (100, 7)}[case]
+    rng = np.random.default_rng(len(case) * 100 + n + L)
+    idx = rng.integers(0, n, size=(n, L)).astype(np.int32)
+    val = rng.standard_normal((n, L)).astype(np.float32)
+    if case == "hub":          # rows 0..63 in aggregate 0, the rest pairs
+        agg = np.concatenate([np.zeros(64, np.int64),
+                              1 + np.arange(n - 64) // 2])
+    elif case == "one_aggregate":
+        agg = np.zeros(n, np.int64)
+    else:
+        agg = rng.permutation(np.arange(n) // 3)
+    nc = int(agg.max()) + 1
+    return (torch.as_tensor(idx, device=device),
+            torch.as_tensor(val, device=device),
+            torch.as_tensor(agg.astype(np.int32), device=device), nc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hub", "L3", "L12", "L17",
+                                  "one_aggregate"])
+@pytest.mark.parametrize("k", [3, 8, 16])
+def test_gpu_k3_bitwise_edge_cases(cuda, case, k):
+    """K3 bitwise against its plain version on a hub aggregate (64
+    members), slab widths other than 7 (17: past the template instances),
+    and one aggregate of every row; k = 3 takes the per-column kernel, 8
+    and 16 the 4-column one, with and without the aggregate-order copy
+    and through the V-cycle's factory."""
+    idx, val, agg, nc = _k3_case(case, cuda)
+    perm, ptr, amax = aggregate_csr(agg, nc)
+    if case == "hub":
+        assert amax == 64
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    r, z = (torch.randn((idx.shape[0], k), generator=gen, device=cuda)
+            for _ in range(2))
+    want = kref.restrict_residual_ref(idx, val, perm, ptr, amax, r, z)
+    copy = tvf.aggregate_slabs(idx, val, perm)
+    before = kops.launch_counts()["restrict_residual"]
+    for got in (tvf.restrict_residual(idx, val, perm, ptr, amax, r, z),
+                tvf.restrict_residual(idx, val, perm, ptr, amax, r, z,
+                                      agg_slabs=copy),
+                tvf.make_fused_restrict_residual(idx, val, perm, ptr,
+                                                 amax)(r, z)):
+        assert got.shape == (nc, k)
+        assert torch.equal(got, want)
+    assert kops.launch_counts()["restrict_residual"] == before + 3
 
 
 @pytest.mark.gpu
@@ -202,7 +251,7 @@ def test_gpu_service_matches_cpu_service(cuda):
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("S", [1, 16, 37])
 @pytest.mark.parametrize("di", [8, 100, 8192])
-@pytest.mark.parametrize("state", [4, 16])
+@pytest.mark.parametrize("state", [4, 8, 16])
 def test_gpu_k6_bitwise_equal_to_plain(cuda, B, S, di, state):
     """K6 against its plain version on the card, float32 and bf16 inputs,
     non-zero h0, di not a multiple of the block; each launch counted."""
@@ -221,6 +270,34 @@ def test_gpu_k6_bitwise_equal_to_plain(cuda, B, S, di, state):
         y_r, h_r = kref.ssm_scan_ref(*args)
         assert y.device.type == "cuda" and y.dtype == torch.float32
         assert torch.equal(y, y_r) and torch.equal(hT, h_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 37])
+@pytest.mark.parametrize("rank", [5, 8])
+def test_gpu_k6_strided_b_c_views(cuda, dtype, S, rank):
+    """B and C as the model slices them, strided views of one x_proj
+    output (``models/layers.py`` ``_ssm_inputs``): read in place through
+    their row strides, bitwise equal to the plain version on contiguous
+    copies.  Rank 8 with di = 96 puts every row on a 16-byte boundary
+    (the kernel's asynchronous copies), rank 5 with di = 100 does not."""
+    B, state = 3, 16
+    di = 96 if rank == 8 else 100
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    x1 = torch.randn((B, S, di), generator=gen, device=cuda).to(dtype)
+    dt = (0.1 * torch.rand((B, S, di), generator=gen, device=cuda)).to(dtype)
+    xdbc = torch.randn((B, S, rank + 2 * state), generator=gen,
+                       device=cuda).to(dtype)
+    Bm, Cm = xdbc[..., rank:rank + state], xdbc[..., rank + state:]
+    assert not Bm.is_contiguous()
+    A = -torch.rand((di, state), generator=gen, device=cuda) - 0.1
+    h0 = torch.randn((B, di, state), generator=gen, device=cuda)
+    y, hT = kops.ssm_scan(x1, dt, Bm, Cm, A, h0)
+    y_r, h_r = kref.ssm_scan_ref(x1, dt, Bm.contiguous(), Cm.contiguous(),
+                                 A, h0)
+    assert torch.equal(y, y_r) and torch.equal(hT, h_r)
 
 
 @pytest.mark.gpu

@@ -178,6 +178,37 @@ def test_k3_restrict_matches_reference(level0):
     _close(got, want_k, r, lv["val"])
 
 
+@pytest.mark.parametrize("L", [3, 7, 8])
+def test_k3_aggregate_slabs_hold_rows_in_aggregate_order(L):
+    """K3's aggregate-order copy: row m is slab row perm[m], padded with
+    zero columns to a multiple of 4; on the CPU the wrapper ignores it and
+    gives the plain result."""
+    rng = np.random.default_rng(L)
+    n, nc = 40, 13
+    idx = torch.as_tensor(rng.integers(0, n, size=(n, L)).astype(np.int32))
+    val = torch.as_tensor(rng.standard_normal((n, L)).astype(np.float32))
+    agg = torch.as_tensor(rng.integers(0, nc, size=n).astype(np.int32))
+    agg[:nc] = torch.arange(nc, dtype=torch.int32)
+    perm, ptr, amax = aggregate_csr(agg, nc)
+    idx_agg, val_agg = tvf.aggregate_slabs(idx, val, perm)
+    width = -(-L // 4) * 4
+    assert idx_agg.shape == val_agg.shape == (n, width)
+    assert idx_agg.dtype == torch.int32 and val_agg.dtype == torch.float32
+    for m in range(n):
+        i = int(perm[m])
+        assert torch.equal(idx_agg[m, :L], idx[i])
+        assert torch.equal(val_agg[m, :L], val[i])
+    assert not idx_agg[:, L:].any() and not val_agg[:, L:].any()
+    r, z = (torch.as_tensor(rng.standard_normal((n, 8)).astype(np.float32))
+            for _ in range(2))
+    want = kref.restrict_residual_ref(idx, val, perm, ptr, amax, r, z)
+    assert torch.equal(tvf.restrict_residual(idx, val, perm, ptr, amax, r, z,
+                                             agg_slabs=(idx_agg, val_agg)),
+                       want)
+    assert torch.equal(tvf.make_fused_restrict_residual(
+        idx, val, perm, ptr, amax)(r, z), want)
+
+
 def test_aggregate_csr_lists_members_ascending():
     agg = torch.as_tensor(np.array([2, 0, 1, 0, 2, 2, 1], np.int32))
     perm, ptr, amax = aggregate_csr(agg, 3)
