@@ -12,25 +12,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      members, slab widths 3, 12 and 17 and a single aggregate; K2 within
      rtol 1e-5 and atol 1e-5 * max|input| (it rounds every operation on
      its own, so it is expected bitwise too); K4 bitwise on the reference
-     test's (K, m, c1) cases and 12 seeded ones, K5 bitwise at n = 31,
-     100, 257; K6 bitwise at B in {1, 3}, S in {1, 16, 37}, di in {8, 100,
-     8192}, state in {4, 8, 16}, float32 and bf16 inputs;
+     test's (K, m, c1) cases, 12 seeded ones and the layouts of
+     ``tests/_k4_layouts.py`` (32 subtasks in one warp, 128 candidates in
+     one subtask of 600 rows, K = 1, 129 and 300, m = 1 and ragged, c1 =
+     1, 9 and 16, no recovered candidate, padding beside invalid
+     candidates, ids far apart and at the int32 extremes), each also on
+     rows that are not 16-byte aligned; K5 bitwise at n = 31, 100, 257; K6
+     bitwise at B in {1, 3}, S in {1, 16, 37}, di in {8, 100, 8192},
+     state in {4, 8, 16}, float32 and bf16 inputs;
   3. the main path: ``build_hierarchy`` on ``mesh2d(1024, 1024, seed=0)``
      (n = 1,048,576, m = 3,141,633; the scale of the paper's NACA0015 FEM
-     mesh), then ``make_solver(matvec_impl="fused")`` and one solve of 8
+     mesh), whose recovery marks through K4 on the card (one launch a
+     round at every level: the count must equal the rounds summed over the
+     levels), then ``make_solver(matvec_impl="fused")`` and one solve of 8
      right-hand sides (tol 1e-3, maxiter 2000), with every kernel's launch
      count read over that run.  tol 1e-3 is the tightest power of ten the
      float32 PCG reaches on all 8 columns at this size; the JAX reference
      misses tighter targets too (``tools/tol_witness.py`` and PERF.md).
-     A second build of the same graph with the tracer on prints the
-     per-stage seconds (the first build is untraced and cold);
+     Two more builds of the same graph with the tracer on print the
+     per-stage seconds of each recovery route, K4 and then the chunked
+     pass (``recover_rounds`` wrapped with ``use_kernel=False``); the
+     chunked build's hierarchy must equal the K4 build's bitwise: level
+     sizes, and every level's agg, ELL slabs and diagonal (the first build
+     is untraced and cold);
   4. the same solve through the plain versions (``matvec_impl="ref"``) on
      the same hierarchy (iterations within +-1 per column, re-based x
      allclose) and a second fused solve (bitwise equal x and iterations);
   5. the K4 path: ``recover_rounds(use_kernel=True)`` on the main graph's
-     level-0 problem (stop at the target ceil(0.05 n)) against the default
-     engine (status bitwise, same rounds, one K4 launch a round), and on
-     mesh2d(128, 128) without a target against the default engine and
+     level-0 problem (stop at the target ceil(0.05 n)) against the chunked
+     route ``use_kernel=False`` (status bitwise, same rounds, one K4 launch
+     a round; every launch's inputs kept for phase 8), and on mesh2d(128,
+     128) without a target against the chunked route and
      ``recover_serial``;
   6. the service path: ``SolverService`` on the main graph, 8 right-hand
      sides as requests of 1, 3 and 4 columns (tol 1e-3, maxiter 2000): a
@@ -52,21 +64,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      model on the card against the CPU (plain scan) within 2e-2;
   8. each kernel timed at its path's shapes beside its plain version,
      its byte/operation bound and, for K1 and K5, ``torch.sparse.mm`` on a
-     CSR copy of the operator; K3 also at every level's shapes (bitwise,
-     time, bound, launches a level); K6 at layer 0's prefill inputs as the
+     CSR copy of the operator; K2 and K3 also at every level's shapes
+     (time, bound, launches a level; K3 bitwise); K4 at the K4 path's first
+     launch and summed over all of that path's launches (device time
+     against the summed bound); K6 at layer 0's prefill inputs as the
      path gives them (bf16, B and C strided views) and cast to float32,
      with the exponentials' issue-rate term printed beside its bound; and
      the fused solve's device time a PCG trip (``torch.profiler`` over 30
      trips).
 
 Each path's launch counts are set to 0 just before it and read just after:
-K1-K3 over phase 3, K4 over phase 5's kernel engine, K5 over phase 6's
+K1-K4 over phase 3 (the ``kernels`` record gives K4's main-path launches;
+phase 5's K4 route is counted and printed on its own), K5 over phase 6's
 kernel-route solve, K6 over phase 7's first ``generate``.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -135,6 +151,53 @@ def check_close(torch, name, got, want, scale):
     if not torch.isfinite(got).all() or err > tol:
         fail(f"{name}: max abs err {err:.3e} > {tol:.3e}")
     return err
+
+
+@contextlib.contextmanager
+def recovery_route(rec, rounds, **force):
+    """Within the block, ``rec.recover_rounds`` appends each call's rounds
+    to ``rounds`` and takes ``force`` (``use_kernel=False``: the chunked
+    marking) over its caller's arguments."""
+    engine = rec.recover_rounds
+
+    def run(*args, **kw):
+        out = engine(*args, **{**kw, **force})
+        rounds.append(out[1].rounds)
+        return out
+
+    rec.recover_rounds = run
+    try:
+        yield
+    finally:
+        rec.recover_rounds = engine
+
+
+def traced_build(torch, g, build_hierarchy, rec, get_tracer, **force):
+    """One traced build of the main graph through the given marking route:
+    (hierarchy, seconds, {span name: seconds})."""
+    tracer = get_tracer()
+    tracer.enable()
+    tracer.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recovery_route(rec, [], **force):
+        h = build_hierarchy(g, alpha=0.05, chunk=512, contraction="device",
+                            device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tracer.disable()
+    stage_s = {}
+    for ev in tracer.events():
+        stage_s[ev["name"]] = stage_s.get(ev["name"], 0.0) + ev["dur_ns"] / 1e9
+    return h, secs, stage_s
+
+
+def same_hierarchy(torch, a, b) -> bool:
+    """Level sizes, and every level's agg, ELL slabs and diagonal, bitwise."""
+    return a.level_sizes == b.level_sizes and all(
+        torch.equal(x, y) for la, lb in zip(a.levels, b.levels)
+        for x, y in ((la.agg, lb.agg), (la.idx, lb.idx), (la.val, lb.val),
+                     (la.diag, lb.diag)))
 
 
 def edge_checks(torch, vf, ref):
@@ -251,6 +314,18 @@ def k45_edge_checks(np, torch, kops, ref):
                            ref.similarity_mark_ref(*args)):
             fail(f"K4 not bitwise equal at K={K} m={m} c1={c1} "
                  f"n_seg={n_seg} sort={sort}")
+    # the layouts that reach each part of the kernel, on aligned rows and
+    # on rows one row into larger tensors (the scalar loads and stores)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _k4_layouts import K4_LAYOUTS, k4_layout
+    for name in K4_LAYOUTS:
+        args = [torch.as_tensor(a, device="cuda") for a in k4_layout(name)]
+        want = ref.similarity_mark_ref(*args)
+        rows = [torch.cat([t[:1], t])[1:] for t in args[4:]]
+        if not (torch.equal(kops.similarity_mark(*args), want) and
+                torch.equal(kops.similarity_mark(*args[:4], *rows), want)):
+            fail(f"K4 not bitwise equal on the {name} layout")
+    cases += K4_LAYOUTS
     gen = torch.Generator(device="cuda").manual_seed(2)
     for n in (31, 100, 257):
         nx = n + 7
@@ -268,11 +343,10 @@ def k45_edge_checks(np, torch, kops, ref):
 
 
 def k4_path(np, torch, g, kops):
-    """The K4 path: the round engine's kernel route against its default
+    """The K4 path: the round engine's kernel route against its chunked
     route at full size, and exhaustively (no target) on mesh2d(128, 128)
-    against the default route and the serial oracle.  Returns the K4
-    launch count of the full-size kernel run and the first launch's
-    inputs."""
+    against the chunked route and the serial oracle.  Returns every K4
+    launch's inputs of the full-size kernel run."""
     from repro_torch.core import recovery as rec
     from repro_torch.core.graph import mesh2d
     from repro_torch.pipeline import Pipeline, pdgrass_config
@@ -291,17 +365,17 @@ def k4_path(np, torch, g, kops):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    # record the inputs of the first K4 launch (for the timing phase)
-    first = []
+    # record every K4 launch's inputs (for the timing phase): the round's
+    # candidates are copied, the rows are the problem's own tensors
+    launches_args = []
     mark = kops.similarity_mark
 
     def recording(*args, **kw):
-        if not first:
-            first.append([a.clone() for a in args])
+        launches_args.append([a.clone() for a in args[:4]] + list(args[4:]))
         return mark(*args, **kw)
 
-    # engines in the order default, K4, K4, default, so that neither
-    # engine always runs first; launches are counted over the first K4 run
+    # routes in the order chunked, K4, K4, chunked, so that neither route
+    # always runs first; launches are counted over the first K4 run
     (st_d, stats_d), d1_s = engine(False)
     kops.reset_launches()
     kops.similarity_mark = recording
@@ -313,22 +387,22 @@ def k4_path(np, torch, g, kops):
     (st_k2, stats_k2), k2_s = engine(True)
     (st_d2, stats_d2), d2_s = engine(False)
     print(f"K4 path: level-0 problem m={prob.m} (prepare {prep_s:.3f} s), "
-          f"target {target}; default engine {d1_s:.3f} s and {d2_s:.3f} s, "
-          f"{stats_d.rounds} rounds; K4 engine {k1_s:.3f} s and {k2_s:.3f} s, "
+          f"target {target}; chunked route {d1_s:.3f} s and {d2_s:.3f} s, "
+          f"{stats_d.rounds} rounds; K4 route {k1_s:.3f} s and {k2_s:.3f} s, "
           f"{stats_k.rounds} rounds, {launches} K4 launches, recovered "
-          f"{int((st_k == rec.STATUS_RECOVERED).sum())}; default/K4 "
+          f"{int((st_k == rec.STATUS_RECOVERED).sum())}; chunked/K4 "
           f"seconds {(d1_s + d2_s) / (k1_s + k2_s):.3f}", flush=True)
     if not all(torch.equal(st, st_d) for st in (st_k, st_k2, st_d2)):
-        fail("K4 engine status differs from the default engine's")
+        fail("the K4 route's status differs from the chunked route's")
     if not stats_k == stats_k2 == stats_d == stats_d2:
-        fail(f"K4 engine stats {stats_k} != default {stats_d}")
+        fail(f"K4 route stats {stats_k} != chunked {stats_d}")
     if launches != stats_k.rounds:
         fail(f"K4 launched {launches} times over {stats_k.rounds} rounds")
 
     small = mesh2d(128, 128, seed=0)
     sprob = Pipeline(cfg).prepare(small, device="cuda").problem
     t0 = time.perf_counter()
-    s_d, _ = rec.recover_rounds(sprob, chunk=512)
+    s_d, _ = rec.recover_rounds(sprob, chunk=512, use_kernel=False)
     torch.cuda.synchronize()
     sd_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -337,13 +411,13 @@ def k4_path(np, torch, g, kops):
     sk_s = time.perf_counter() - t0
     s_s = rec.recover_serial(sprob)
     print(f"K4 path, mesh2d(128, 128) without a target: m={sprob.m}, "
-          f"{sstats.rounds} rounds; default {sd_s:.3f} s, K4 {sk_s:.3f} s",
+          f"{sstats.rounds} rounds; chunked {sd_s:.3f} s, K4 {sk_s:.3f} s",
           flush=True)
     if not (torch.equal(s_k, s_d)
             and np.array_equal(s_k.cpu().numpy(), s_s)):
-        fail("mesh2d(128, 128): the K4 engine, the default engine and "
+        fail("mesh2d(128, 128): the K4 route, the chunked route and "
              "recover_serial disagree")
-    return launches, first[0]
+    return launches_args
 
 
 def service_path(np, torch, g, b, kops):
@@ -448,26 +522,19 @@ def ell_to_csr(torch, idx, val):
             (n, n), check_invariants=True).coalesce().to_sparse_csr()
 
 
-def k45_records(np, torch, kops, ref, k4_args, k4_launches, idx, val,
-                k5_launches):
-    """K4 on the inputs of the K4 path's first launch and K5 on the main
-    graph's operator: error against the plain version, device ms beside
-    the plain version's, the bound and (K5) ``torch.sparse.mm``."""
-    csu, csv, cbeta, cseg, esu, esv, eseg = k4_args
+def k4_bound(torch, args):
+    """Bytes and operations one K4 launch needs on these inputs: every
+    row's subtask id read and its output byte written, the candidates read
+    once, and the two signatures of only those rows that a recovered
+    candidate (cbeta >= 0) of their own subtask could mark (no other row's
+    result depends on its signatures); operations, the 4 (c1)^2-grid
+    compares, pairs with a + b <= min(beta, c1 - 1), of every (row,
+    same-subtask candidate) pair.  Returns (bound ms, bound_by, bytes,
+    rows in the recovered candidates' subtasks, (row, candidate, pair)
+    cells)."""
+    csu, csv, cbeta, cseg, esu, esv, eseg = args
     K, c1 = csu.shape
     m = esu.shape[0]
-    got = kops.similarity_mark(*k4_args)
-    want = ref.similarity_mark_ref(*k4_args)
-    if not torch.equal(got, want):
-        fail("K4 is not bitwise equal to its plain version at the K4 "
-             "path's shape")
-    err4 = float((got.int() - want.int()).abs().max())
-    # bytes: every row's subtask id read and its output byte written, the
-    # candidates read once, and the two signatures of only those rows that
-    # a recovered candidate (cbeta >= 0) of their own subtask could mark:
-    # no other row's result depends on its signatures.  Operations: the 4
-    # (c1)^2-grid compares, pairs with a + b <= min(beta, c1 - 1), of
-    # every (row, same-subtask candidate) pair of this run's data
     live_segs = torch.unique(cseg[cbeta >= 0])
     sig_rows = int(torch.isin(eseg, live_segs).sum())
     nbytes = m * (4 + 1) + sig_rows * 2 * c1 * 4 + K * (2 * c1 * 4 + 8)
@@ -479,8 +546,29 @@ def k45_records(np, torch, kops, ref, k4_args, k4_launches, idx, val,
     seg_rows = torch.bincount((eseg - lo).long(),
                               minlength=int(cseg.max()) - lo + 1)
     rows_k = seg_rows[(cseg - lo).long()]              # rows of k's subtask
-    ops = 4.0 * float((rows_k * pairs).sum())
-    bms, by = bound_ms(nbytes, ops)
+    cells = float((rows_k * pairs).sum())
+    bms, by = bound_ms(nbytes, 4.0 * cells)
+    return bms, by, nbytes, sig_rows, cells
+
+
+def k45_records(np, torch, kops, ref, k4_runs, k4_launches, idx, val,
+                k5_launches):
+    """K4 on the inputs of the K4 path's first launch and summed over all
+    of that path's launches, and K5 on the main graph's operator: error
+    against the plain version, device ms beside the plain version's, the
+    bound and (K5) ``torch.sparse.mm``.  ``k4_launches`` is K4's count
+    over the main path's build."""
+    k4_args = k4_runs[0]
+    csu, csv, cbeta, cseg, esu, esv, eseg = k4_args
+    K, c1 = csu.shape
+    m = esu.shape[0]
+    got = kops.similarity_mark(*k4_args)
+    want = ref.similarity_mark_ref(*k4_args)
+    if not torch.equal(got, want):
+        fail("K4 is not bitwise equal to its plain version at the K4 "
+             "path's shape")
+    err4 = float((got.int() - want.int()).abs().max())
+    bms, by, nbytes, sig_rows, cells = k4_bound(torch, k4_args)
     rec4 = dict(
         name="similarity_mark", route="cuda",
         source="src/repro_torch/kernels/csrc/similarity_mark.cu",
@@ -494,9 +582,21 @@ def k45_records(np, torch, kops, ref, k4_args, k4_launches, idx, val,
                     queued=False)
     print(f"K4 shapes: K={K} m={m} c1={c1}; {int((cbeta >= 0).sum())} "
           f"recovered candidates, {sig_rows} rows in their subtasks, "
-          f"{float((rows_k * pairs).sum()):.0f} (row, candidate, pair) "
-          f"cells; {nbytes} bytes; unqueued (host dispatch included) "
-          f"{host4:.4f} ms a call", flush=True)
+          f"{cells:.0f} (row, candidate, pair) cells; {nbytes} bytes; "
+          f"unqueued (host dispatch included) {host4:.4f} ms a call",
+          flush=True)
+    # every launch of a K4-path run, each timed on its own (queued, so
+    # device time; thousands of launches queued at once would fill the
+    # launch queue and time the host): the device time the path spends in
+    # K4, against the sum of the launches' bounds
+    per_ms = [time_ms(torch, lambda: kops.similarity_mark(*a), reps=5)
+              for a in k4_runs]
+    path_ms, median = sum(per_ms), sorted(per_ms)[len(per_ms) // 2]
+    path_bound = sum(k4_bound(torch, a)[0] for a in k4_runs)
+    print(f"K4 over the K4 path's {len(k4_runs)} launches: device time "
+          f"{path_ms:.4f} ms in all (median {median:.4f} ms, max "
+          f"{max(per_ms):.4f} ms a launch), summed bound {path_bound:.4f} "
+          f"ms, ratio {path_ms / path_bound:.2f}", flush=True)
 
     n, L = idx.shape
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -563,8 +663,37 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(torch, lambda: torch.sparse.mm(A, x))))
 
-    # K2: one recurrence step with its matvec, on level 0
+    # K2: one recurrence step with its matvec, on level 0 (the record) and
+    # on every level, with its launches a level
     kw = dict(first=False, theta=1.37, c1=0.61, c2=0.93)
+    k2_levels = []
+    for i, lv in enumerate(hier.levels):
+        ln, lL = lv.idx.shape
+        lr, lz, lp = (torch.randn((ln, K), generator=gen, device="cuda")
+                      for _ in range(3))
+        linv = 1.0 / lv.diag
+        lout = torch.empty_like(lr)
+        bms, by = bound_ms(ln * lL * 8 + ln * 4 + ln * K * 4 * 5,
+                           ln * K * (2.0 * lL + 6))
+        k2_levels.append(dict(level=i, n=ln, L=lL, ms=time_ms(
+            torch, lambda: vf.cheby_step(lv.idx, lv.val, linv, lr, lz, lp,
+                                         lout, **kw)),
+            bound_ms=bms, bound_by=by))
+    # every V-cycle smooths twice on every level, degree 2: 4 steps
+    per_level, rest = divmod(counts["cheby_step"], len(k2_levels))
+    if rest:
+        fail(f"K2 launched {counts['cheby_step']} times over "
+             f"{len(k2_levels)} levels")
+    gap = 0.0
+    for row in k2_levels:
+        row["launches"] = per_level
+        gap += per_level * (row["ms"] - row["bound_ms"])
+        print(f"K2 level: {json.dumps(row)}", flush=True)
+    print(f"K2 over all levels: {per_level} launches a level, "
+          f"{sum(row['ms'] for row in k2_levels):.4f} ms a step on every "
+          f"level (bound {sum(row['bound_ms'] for row in k2_levels):.4f} ms);"
+          f" launch-weighted gap sum(launches * (ms - bound)) {gap:.3f} ms a "
+          f"solve", flush=True)
     pk, zk = vf.cheby_step(lev.idx, lev.val, inv_d, r, z, p0.clone(),
                            torch.empty_like(r), **kw)
     pr, zr = ref.cheby_step_ref(lev.idx, lev.val, inv_d, r, z, p0.clone(),
@@ -970,6 +1099,7 @@ def main() -> int:
               "a CUDA device", file=sys.stderr)
         return 2
     try:
+        from repro_torch.core import recovery as rec
         from repro_torch.core.graph import mesh2d
         from repro_torch.kernels import _build, ref
         from repro_torch.kernels import ops as kops
@@ -1031,11 +1161,13 @@ def main() -> int:
           f"({time.perf_counter() - t0:.2f} s on the host)", flush=True)
     b = np.random.default_rng(1).standard_normal((g.n, K)).astype(np.float32)
     # the main path, untraced: launch counts are read over exactly this run
+    rounds = []
     kops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    hier = build_hierarchy(g, alpha=0.05, chunk=512, contraction="device",
-                           device="cuda")
+    with recovery_route(rec, rounds):
+        hier = build_hierarchy(g, alpha=0.05, chunk=512,
+                               contraction="device", device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     idx, val = ell_laplacian(g, device="cuda")
@@ -1048,31 +1180,36 @@ def main() -> int:
     res = solver(b_dev, tol=TOL, maxiter=MAXITER)
     torch.cuda.synchronize()
     solve_ms = (time.perf_counter() - t0) * 1e3
-    # the kernels the main path runs (K4 and K5 have paths of their own)
+    # the kernels the main path runs (K5 and K6 have paths of their own)
     counts = {name: n for name, n in kops.launch_counts().items()
               if name in ("spmv_ell_batched", "cheby_step",
-                          "restrict_residual")}
+                          "restrict_residual", "similarity_mark")}
 
-    # a second, traced build gives the per-stage seconds
-    tracer = get_tracer()
-    tracer.enable()
-    tracer.clear()
-    t0 = time.perf_counter()
-    build_hierarchy(g, alpha=0.05, chunk=512, contraction="device",
-                    device="cuda")
-    torch.cuda.synchronize()
-    traced_build_s = time.perf_counter() - t0
-    tracer.disable()
-    stage_s = {}
-    for ev in tracer.events():
-        stage_s[ev["name"]] = stage_s.get(ev["name"], 0.0) + ev["dur_ns"] / 1e9
+    # two traced builds give the per-stage seconds of each marking route
+    traced = {route: traced_build(torch, g, build_hierarchy, rec, get_tracer,
+                                  **force)
+              for route, force in (("K4", {}),
+                                   ("chunked", {"use_kernel": False}))}
     iters = res.iters.tolist()
     relres = res.relres.tolist()
     print(f"hierarchy: depth {hier.depth}, level sizes {hier.level_sizes}, "
-          f"build {build_s:.3f} s (traced build {traced_build_s:.3f} s)",
+          f"build {build_s:.3f} s; rounds a level {rounds} (sum "
+          f"{sum(rounds)}), K4 launches {counts['similarity_mark']}",
           flush=True)
-    print("traced build stages (s, host spans): " + json.dumps(
-        {k: round(v, 4) for k, v in sorted(stage_s.items())}), flush=True)
+    for route, (h, secs, stage_s) in traced.items():
+        print(f"traced build, {route} marking: {secs:.3f} s, "
+              f"pipeline.recovery {stage_s.get('pipeline.recovery', 0):.4f} "
+              f"s; stages (s, host spans): " + json.dumps(
+                  {k: round(v, 4) for k, v in sorted(stage_s.items())}),
+              flush=True)
+    if counts["similarity_mark"] != sum(rounds):
+        fail(f"K4 launched {counts['similarity_mark']} times over the main "
+             f"path's build, which ran {sum(rounds)} rounds")
+    for route, (h, _, _) in traced.items():
+        if not same_hierarchy(torch, h, hier):
+            fail(f"the {route} route's traced build differs from the main "
+                 f"path's hierarchy")
+    del traced
     print(f"solver setup {setup_s:.3f} s, rho per level "
           f"{[round(x, 6) for x in solver.msolve.rhos]}", flush=True)
     print(f"fused solve: {solve_ms:.2f} ms, iters {iters}, true relres "
@@ -1114,7 +1251,7 @@ def main() -> int:
     phase_done("main_path")
 
     # ---- phase 5: the K4 path ------------------------------------------
-    k4_launches, k4_args = k4_path(np, torch, g, kops)
+    k4_runs = k4_path(np, torch, g, kops)
     phase_done("k4_path")
 
     # ---- phase 6: the service path, and its K5 route -------------------
@@ -1128,8 +1265,8 @@ def main() -> int:
     # ---- phase 8: kernels at their paths' shapes -------------------------
     records = kernel_records(torch, vf, ref, hier, idx, val, counts)
     trip_profile(torch, solver, b_dev)
-    records += k45_records(np, torch, kops, ref, k4_args, k4_launches, idx,
-                           val, k5_launches)
+    records += k45_records(np, torch, kops, ref, k4_runs,
+                           counts["similarity_mark"], idx, val, k5_launches)
     records.append(k6_record(torch, kops, ref, k6_args, k6_launches,
                              max_sm_clock_mhz()))
     phase_done("kernel_timing")

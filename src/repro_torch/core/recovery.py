@@ -24,18 +24,22 @@ Where the port departs in form from the reference (never in result):
     more leading entry) and tests for the fixpoint on the host every few
     passes.  Chains of similar candidates are short, so this is a handful
     of tensor ops instead of 128 Python steps.
-  * The chunked marking pass (``recovery.py:247-273``, ``lax.map`` with a
-    ``lax.cond`` per chunk) computes the active-chunk mask on the device,
-    takes its indices with one host sync per round and marks the rows of
-    only those chunks in one batched op.  A row is tested against the at
-    most ``block_size`` candidates of its own subtask, not all K.  With
-    ``use_kernel=True`` the pass is the reference's kernel route instead:
-    kernel K4 over every row, once per round.
+  * The marking pass takes its route from the problem's device, where the
+    reference takes the flag ``use_kernel`` (default off).  On a CUDA
+    problem it is the reference's kernel route (``recovery.py:241-245``):
+    kernel K4 over every row, one launch a round, no host sync.  On a CPU
+    problem it is the chunked pass (``recovery.py:247-273``, ``lax.map``
+    with a ``lax.cond`` per chunk): the active-chunk mask is computed on
+    the device, its indices taken with one host sync per round, and the
+    rows of only those chunks marked in one batched op, each against the
+    at most ``block_size`` candidates of its own subtask, not all K.  An
+    explicit ``use_kernel`` picks the route on either device; both routes
+    give the same status.
   * ``mode="drop"`` scatters are masked explicitly (``scatter_drop``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -183,7 +187,7 @@ def _resolve_block(sim: torch.Tensor) -> torch.Tensor:
 def recover_rounds(prob: RecoveryProblem, target: int = 2**31 - 1, *,
                    block_size: int = 16, max_candidates: int = 128,
                    stop_at_target: bool = False, chunk: int = 2048,
-                   use_kernel: bool = False):
+                   use_kernel: Optional[bool] = None):
     """Round-based parallel recovery.  Returns (status[m] int8, RoundStats).
 
     With ``stop_at_target=False`` the result is bit-identical to
@@ -193,12 +197,15 @@ def recover_rounds(prob: RecoveryProblem, target: int = 2**31 - 1, *,
     ``use_kernel=True`` runs each round's marking pass through kernel K4
     (:func:`repro_torch.kernels.ops.similarity_mark`) over all ``m`` rows
     against all ``max_candidates`` candidates, one launch per round, as
-    the reference does (``recovery.py:241-245``); the default marks only
-    the active chunks.  Both give the same status.
+    the reference does (``recovery.py:241-245``); ``False`` marks only the
+    active chunks.  ``None`` (the default) takes K4 on a CUDA problem and
+    the chunked pass on a CPU problem.  Both give the same status.
     """
     m = prob.m
     K, B = max_candidates, block_size
     dev = prob.seg.device
+    if use_kernel is None:
+        use_kernel = dev.type == "cuda"
     seg, beta = prob.seg, prob.beta
     sig_u, sig_v = prob.sig_u, prob.sig_v
     is_edge = seg >= 0

@@ -37,7 +37,7 @@ SIGNATURES = {
     "repro_restrict_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _P],
     "repro_similarity_mark": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _P],
+                              _P, _I, _I, _P],
     "repro_spmv_ell": [_P, _P, _P, _P, _I, _I, _P],
     "repro_ssm_scan": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _I,
                        _I, _I, _I, _I, _P],

@@ -11,12 +11,19 @@ where ``x in S(y)`` is ``exists a + b <= beta_k: sig_y[k, a] == sig_x[j, b]``
 — a fixed ``(c+1)^2`` grid of int32 equality tests, pairs with
 ``a + b > c`` skipped.
 
-:func:`similarity_mark` launches the hand-written CUDA kernel
-(``kernels/csrc/similarity_mark.cu``) when its tensors lie on a CUDA device
-and runs the plain version
-(:func:`repro_torch.kernels.ref.similarity_mark_ref`) when they lie on the
-CPU.  Each launch adds one to its count in
+:func:`similarity_mark` launches the hand-written CUDA kernels
+(``kernels/csrc/similarity_mark.cu``: the row stream, then the (row,
+candidate) pairs it lists) when its tensors lie on a CUDA device and runs
+the plain version (:func:`repro_torch.kernels.ref.similarity_mark_ref`)
+when they lie on the CPU.  Each launch adds one to its count in
 :data:`repro_torch.kernels._launch.launches`.
+
+The list of rows that the row stream hands to the second kernel lives in
+one scratch buffer a device (:data:`ROW_CAPACITY` rows, 8 MB), zeroed when
+first made; the launches on a device number themselves so that each
+leaves the next one a zero count.  One launch at a time may use a
+device's buffer, as on the port's single stream.  A warp whose rows do
+not fit walks them itself, so the result never depends on the capacity.
 """
 from __future__ import annotations
 
@@ -26,6 +33,19 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import count, on_cuda, require, stream
 
 _MAX_C1 = 16   # the CUDA kernel's template instances cover c1 = 1..16
+ROW_CAPACITY = 1 << 21    # rows the device list holds
+_scratch: dict = {}       # device -> [int32 [2 + ROW_CAPACITY], launches]
+
+
+def _row_scratch(device):
+    """The device's scratch buffer and the number of this launch."""
+    entry = _scratch.get(device)
+    if entry is None:
+        entry = _scratch[device] = [
+            torch.zeros(2 + ROW_CAPACITY, dtype=torch.int32, device=device),
+            0]
+    entry[1] += 1
+    return entry[0], entry[1] & 0x3FFFFFFF
 
 
 def similarity_mark(csu, csv, cbeta, cseg, esu, esv, eseg):
@@ -63,9 +83,11 @@ def similarity_mark(csu, csv, cbeta, cseg, esu, esv, eseg):
         raise ValueError(f"similarity_mark takes 1 <= c1 <= {_MAX_C1}, "
                          f"got {c1}")
     out = torch.empty((m,), dtype=torch.bool, device=esu.device)
+    scratch, epoch = _row_scratch(esu.device)
     check(library().repro_similarity_mark(
         csu.data_ptr(), csv.data_ptr(), cbeta.data_ptr(), cseg.data_ptr(),
         esu.data_ptr(), esv.data_ptr(), eseg.data_ptr(), out.data_ptr(), K, m,
-        c1, stream()), "similarity_mark")
+        c1, scratch.data_ptr(), ROW_CAPACITY, epoch, stream()),
+        "similarity_mark")
     count("similarity_mark")
     return out

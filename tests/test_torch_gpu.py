@@ -11,6 +11,7 @@ One test here runs on the CPU as well: the port and ``chip_smoke.py``
 import neither ``jax`` nor the JAX package ``repro``.
 """
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -21,14 +22,19 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core import recovery  # noqa: E402
 from repro_torch.core.graph import mesh2d  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import similarity as ksim  # noqa: E402
 from repro_torch.kernels import vcycle_fused as tvf  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.pipeline import Pipeline, pdgrass_config  # noqa: E402
 from repro_torch.solver import (SolveRequest, SolverService,  # noqa: E402
                                 build_hierarchy, ell_laplacian, make_solver)
 from repro_torch.solver.hierarchy import aggregate_csr  # noqa: E402
+
+from _k4_layouts import K4_LAYOUTS, k4_layout  # noqa: E402
 
 V_CYCLE_KERNELS = ("spmv_ell_batched", "cheby_step", "restrict_residual")
 
@@ -181,6 +187,83 @@ def test_gpu_k4_bitwise_equal_to_plain(cuda, K, m, c1):
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert torch.equal(got, kref.similarity_mark_ref(*args))
     assert kops.launch_counts()["similarity_mark"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", K4_LAYOUTS)
+def test_gpu_k4_bitwise_on_kernel_layouts(cuda, layout):
+    """K4 on the layouts that reach each part of the kernel, bitwise equal
+    to its plain version, one launch each; and again with the rows as
+    views one row into larger tensors (not 16-byte aligned: the scalar
+    loads and stores)."""
+    args = [torch.as_tensor(a, device=cuda) for a in k4_layout(layout)]
+    before = kops.launch_counts()["similarity_mark"]
+    got = kops.similarity_mark(*args)
+    assert torch.equal(got, kref.similarity_mark_ref(*args))
+    assert kops.launch_counts()["similarity_mark"] == before + 1
+    rows = [torch.cat([t[:1], t])[1:] for t in args[4:]]
+    assert rows[2].data_ptr() % 16 != 0
+    assert torch.equal(kops.similarity_mark(*args[:4], *rows), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capacity", [37, None])
+def test_gpu_k4_row_list_full_and_reused(cuda, monkeypatch, capacity):
+    """The layouts with thousands of (row, candidate) pairs in one block
+    send their rows to K4's second kernel through a list in device
+    memory.  With room for only 37 rows, the warps that find it full walk
+    their rows in the first kernel.  Each layout runs three times in a
+    row, bitwise equal to the plain version every time: each launch leaves
+    the next one an empty list."""
+    if capacity is not None:
+        monkeypatch.setattr(ksim, "ROW_CAPACITY", capacity)
+    for layout in ("128_in_one_subtask", "warp_in_32_subtasks", "m1"):
+        args = [torch.as_tensor(a, device=cuda) for a in k4_layout(layout)]
+        want = kref.similarity_mark_ref(*args)
+        for _ in range(3):
+            assert torch.equal(kops.similarity_mark(*args), want), layout
+
+
+@pytest.mark.gpu
+def test_gpu_recover_rounds_default_route_is_k4(cuda):
+    """On a CUDA problem the default route marks through K4, one launch a
+    round, and equals the chunked route (``use_kernel=False``) bitwise."""
+    prob = Pipeline(pdgrass_config(alpha=0.05, chunk=256)).prepare(
+        mesh2d(32, 32, seed=1), device=cuda).problem
+    kw = dict(target=52, stop_at_target=True, chunk=256)
+    before = kops.launch_counts()["similarity_mark"]
+    st, stats = recovery.recover_rounds(prob, **kw)
+    assert kops.launch_counts()["similarity_mark"] == before + stats.rounds
+    st_c, stats_c = recovery.recover_rounds(prob, use_kernel=False, **kw)
+    assert kops.launch_counts()["similarity_mark"] == before + stats.rounds
+    assert torch.equal(st, st_c) and stats == stats_c
+
+
+@pytest.mark.gpu
+def test_gpu_build_hierarchy_routes_agree(cuda, monkeypatch):
+    """``build_hierarchy`` on the card marks through K4 at every level, and
+    the chunked route forced on gives the same hierarchy: agg and level
+    sizes."""
+    g = mesh2d(64, 64, seed=0)
+    rounds = []
+    engine = recovery.recover_rounds
+
+    def counted(*args, **kw):
+        out = engine(*args, **kw)
+        rounds.append(out[1].rounds)
+        return out
+
+    monkeypatch.setattr(recovery, "recover_rounds", counted)
+    before = kops.launch_counts()["similarity_mark"]
+    k4 = build_hierarchy(g, alpha=0.05, device=cuda)
+    assert kops.launch_counts()["similarity_mark"] - before == sum(rounds) > 0
+    monkeypatch.setattr(recovery, "recover_rounds",
+                        functools.partial(engine, use_kernel=False))
+    chunked = build_hierarchy(g, alpha=0.05, device=cuda)
+    assert kops.launch_counts()["similarity_mark"] - before == sum(rounds)
+    assert k4.level_sizes == chunked.level_sizes
+    for a, b in zip(k4.levels, chunked.levels):
+        assert torch.equal(a.agg, b.agg)
 
 
 @pytest.mark.gpu

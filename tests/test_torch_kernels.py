@@ -33,6 +33,8 @@ from repro_torch.kernels import vcycle_fused as tvf  # noqa: E402
 from repro_torch.kernels.spmv_ell import to_ell  # noqa: E402
 from repro_torch.solver.hierarchy import aggregate_csr  # noqa: E402
 
+from _k4_layouts import K4_LAYOUTS, k4_layout  # noqa: E402
+
 def _suites():
     j, t = dict(jgraph.suite("tiny")), dict(tgraph.suite("tiny"))
     j["mesh12"], t["mesh12"] = jgraph.mesh2d(12, 12), tgraph.mesh2d(12, 12)
@@ -272,6 +274,30 @@ def test_k4_plain_matches_reference(K, m, c1, tile_m, monkeypatch):
 def test_k4_plain_matches_reference_seeded(seed, K, m, c1, monkeypatch):
     rng = np.random.default_rng(seed * 1000 + K * m + c1)
     _k4_all_routes(_sim_problem(rng, K, m, c1), 32, monkeypatch)
+
+
+@pytest.mark.parametrize("layout", K4_LAYOUTS)
+def test_k4_plain_matches_reference_on_kernel_layouts(layout):
+    """The layouts that reach each part of the CUDA kernel (many subtasks
+    in a warp, 128 candidates in one subtask, K past a tile, ragged m, c1
+    at both ends, no recovered candidate, padding beside invalid
+    candidates): the port's plain version against the reference's Pallas
+    kernel in interpret mode, bitwise."""
+    args = k4_layout(layout)
+    K, c1 = args[0].shape
+    m = args[4].shape[0]
+    # the reference runs on one shape per c1 (one compile): extra
+    # candidates are disabled (cbeta -1) and extra rows are cut off
+    K_pad, m_pad = 300, 8240
+    pads = ((K_pad - K, 0), (K_pad - K, 0), (K_pad - K, -1), (K_pad - K, -2),
+            (m_pad - m, 0), (m_pad - m, 0), (m_pad - m, -3))
+    padded = [np.pad(a, [(0, n)] + [(0, 0)] * (a.ndim - 1),
+                     constant_values=v) for a, (n, v) in zip(args, pads)]
+    want = np.asarray(jops.similarity_mark(
+        *[jnp.asarray(a) for a in padded], tile_m=m_pad))[:m]
+    got = tops.similarity_mark(*[torch.as_tensor(a) for a in args])
+    assert got.dtype == torch.bool and got.shape == (m,)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_k4_static_skip_of_pairs_past_c():

@@ -31,6 +31,7 @@ from repro_torch.core import graph_ops as tops  # noqa: E402
 from repro_torch.core import pcg as tpcg  # noqa: E402
 from repro_torch.core import recovery as trec  # noqa: E402
 from repro_torch.core.fegrass import fegrass as tfegrass  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.pipeline import Pipeline as TPipeline  # noqa: E402
 from repro_torch.pipeline import pdgrass_config as tconfig  # noqa: E402
 
@@ -155,6 +156,35 @@ def test_k4_engine_matches_reference_at_target(prepared, graphs):
     np.testing.assert_array_equal(_np(ts), _np(js))
     assert torch.equal(ts, td) and tst == tdst
     assert tst.rounds == int(jst.rounds)
+
+
+def test_default_route_on_cpu_is_the_chunked_pass(prepared, graphs,
+                                                  monkeypatch):
+    """On a CPU problem ``recover_rounds`` marks through the chunked pass
+    unless asked: K4's entry point is not called (and counts no launch),
+    and the status and stats equal ``use_kernel=False`` and the K4 route
+    bit for bit."""
+    _, tp = prepared["mesh12"]
+    target = int(np.ceil(0.05 * graphs[1]["mesh12"].n))
+    calls = []
+    mark = kops.similarity_mark
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return mark(*args, **kw)
+
+    monkeypatch.setattr(kops, "similarity_mark", spy)
+    before = kops.launch_counts()
+    run = lambda **kw: trec.recover_rounds(tp.problem, target,
+                                           stop_at_target=True, chunk=CHUNK,
+                                           **kw)
+    td, tdst = run()
+    assert calls == [] and kops.launch_counts() == before
+    tc, tcst = run(use_kernel=False)
+    assert calls == [] and torch.equal(td, tc) and tdst == tcst
+    tk, tkst = run(use_kernel=True)
+    assert len(calls) == tkst.rounds and torch.equal(td, tk) and tkst == tdst
+    assert kops.launch_counts() == before
 
 
 # -- feGRASS baseline and the quality metric ---------------------------------
