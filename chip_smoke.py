@@ -50,6 +50,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      tol), a warm flush (``mem``), a restarted service on the same disk
      tier (``disk``), all bitwise equal; then a ``matvec_impl="kernel"``
      service (K5) on one 2-column request, bitwise equal to the fused one;
+  6b. two builds at once on one service: mesh2d(512, 512, seed=0) and
+     mesh2d(384, 384, seed=1) built serially with the service's settings,
+     then both again from two threads, a ``SolverDaemon``'s ``miss``
+     beside a synchronous ``flush``: each hierarchy bitwise equal to its
+     serial build (level sizes, agg, slabs, diagonals), K4's launches the
+     rounds of both builds summed;
+  6c. the daemon at full width: a service over the main graph set up from
+     phase 6's disk tier (``disk``), ``SolverDaemon(max_batch_delay_ms=25,
+     max_batch_columns=8)`` with tenants "paid" (weight 4) and "free",
+     ``replay_daemon`` of ``make_schedule(16, 8.0, seed=7)`` at tol 1e-3,
+     then ``replay_sync`` of its first 8: every request resolved, fewer
+     flush cycles than requests, the 8 shared requests with the same
+     iterations in both modes and x within 1e-3 (re-based); both replay
+     records printed;
+  6d. the spectral services and score stages against scipy's f64
+     oracles: ``effective_resistance`` through a daemon on the main graph
+     (4 graph edges and 4 far pairs at tol 1e-3: positive, an edge's at
+     most 1/w (1 + 1e-3), a repeat a cache hit with no new flush),
+     ``fiedler_vector`` on mesh2d(128, 128) against ``eigsh`` shift-invert
+     (eigenvalue rtol 1e-3, |cos| >= 1 - 1e-3, residual <= 1e-3),
+     ``harmonic_interpolate`` on mesh2d(256, 256) with 1% boundary
+     vertices against ``spsolve`` (max error 1e-6), the ``er_exact``
+     pipeline on mesh2d(64, 64) against sparse LU of the grounded
+     Laplacian (rtol 1e-3), and ``er_sample`` on mesh2d(128, 128): its
+     noise bits on the card equal to the CPU's, the recovered masks
+     equal;
   7. the LM serving path: falcon-mamba-7b at full width (64 layers,
      7,006,326,784 random parameters from ``torch.Generator("cuda")``
      seed 0), ``repro_torch.serve.Engine(batch=4)`` answering 4 greedy
@@ -66,8 +92,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      its byte/operation bound and, for K1 and K5, ``torch.sparse.mm`` on a
      CSR copy of the operator; K2 and K3 also at every level's shapes
      (time, bound, launches a level; K3 bitwise); K4 at the K4 path's first
-     launch and summed over all of that path's launches (device time
-     against the summed bound); K6 at layer 0's prefill inputs as the
+     launch and summed over all of that path's launches and over all of
+     the main-path build's (device time against the summed bound; the
+     build's launches recorded in phase 3's traced K4 build); K6 at layer
+     0's prefill inputs as the
      path gives them (bf16, B and C strided views) and cast to float32,
      with the exponentials' issue-rate term printed beside its bound; and
      the fused solve's device time a PCG trip (``torch.profiler`` over 30
@@ -76,7 +104,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 Each path's launch counts are set to 0 just before it and read just after:
 K1-K4 over phase 3 (the ``kernels`` record gives K4's main-path launches;
 phase 5's K4 route is counted and printed on its own), K5 over phase 6's
-kernel-route solve, K6 over phase 7's first ``generate``.
+kernel-route solve, K4 over phase 6b's two builds, K1-K3 over phase 6c's
+daemon replay, each spectral call of phase 6d on its own, K6 over phase
+7's first ``generate``.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -87,6 +117,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -98,6 +129,7 @@ F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES_PER_S = 2e9      # at most the H100's SM clock, so sleeps run long
 MAIN_ROWS = 1024
 TOL, MAXITER, K = 1e-3, 2000, 8
+CFG_KW = dict(alpha=0.05, chunk=512)   # the main path's pdGRASS config
 
 
 def fail(msg: str) -> None:
@@ -172,18 +204,32 @@ def recovery_route(rec, rounds, **force):
         rec.recover_rounds = engine
 
 
-def traced_build(torch, g, build_hierarchy, rec, get_tracer, **force):
+def traced_build(torch, g, build_hierarchy, rec, get_tracer, kops,
+                 record=None, **force):
     """One traced build of the main graph through the given marking route:
-    (hierarchy, seconds, {span name: seconds})."""
+    (hierarchy, seconds, {span name: seconds}).  With ``record``, every K4
+    launch's inputs are appended to it (the candidates copied, the rows
+    the problem's own tensors)."""
     tracer = get_tracer()
+    mark = kops.similarity_mark
+
+    def recording(*args, **kw):
+        record.append([a.clone() for a in args[:4]] + list(args[4:]))
+        return mark(*args, **kw)
+
+    if record is not None:
+        kops.similarity_mark = recording
     tracer.enable()
     tracer.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with recovery_route(rec, [], **force):
-        h = build_hierarchy(g, alpha=0.05, chunk=512, contraction="device",
-                            device="cuda")
-    torch.cuda.synchronize()
+    try:
+        with recovery_route(rec, [], **force):
+            h = build_hierarchy(g, alpha=0.05, chunk=512,
+                                contraction="device", device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        kops.similarity_mark = mark
     secs = time.perf_counter() - t0
     tracer.disable()
     stage_s = {}
@@ -420,12 +466,11 @@ def k4_path(np, torch, g, kops):
     return launches_args
 
 
-def service_path(np, torch, g, b, kops):
+def service_path(np, torch, g, b, kops, disk):
     """The service path: cold, warm and restarted flushes bitwise equal,
-    then the K5 route against the fused route.  Returns the K5 launch
-    count of the kernel-route solve."""
-    import tempfile
-
+    then the K5 route against the fused route, with the artifacts on the
+    disk tier ``disk``.  Returns the K5 launch count of the kernel-route
+    solve."""
     from repro_torch.pipeline import pdgrass_config
     from repro_torch.solver import SolveRequest, SolverService
 
@@ -463,51 +508,348 @@ def service_path(np, torch, g, b, kops):
         return rs[0].cache, x, iters, svc.stats()["scheduler"]["groups"] \
             - groups
 
-    with tempfile.TemporaryDirectory() as disk:
-        svc = SolverService(pipeline=cfg, coarse_n=64, disk_dir=disk)
-        h = svc.register(g)
-        cold = flush(svc, h, "cold flush")
-        if cold[0] != "miss" or cold[3] != 1:
-            fail(f"cold flush: cache {cold[0]}, {cold[3]} groups; want a "
-                 f"miss in one group")
-        warm = flush(svc, h, "warm flush")
-        restart = SolverService(pipeline=cfg, coarse_n=64, disk_dir=disk)
-        again = flush(restart, restart.store.get(h.fingerprint), "restart")
-        for label, run, source in (("warm flush", warm, "mem"),
-                                   ("restart", again, "disk")):
-            if run[0] != source:
-                fail(f"{label}: cache {run[0]}, want {source}")
-            if not (np.array_equal(run[1], cold[1])
-                    and np.array_equal(run[2], cold[2])):
-                fail(f"{label}: x or iterations differ from the cold flush")
-        print(f"service stats()['cache']: {json.dumps(svc.stats()['cache'])}"
-              f"; restarted: {json.dumps(restart.stats()['cache'])}",
-              flush=True)
-        del restart
+    svc = SolverService(pipeline=cfg, coarse_n=64, disk_dir=disk)
+    h = svc.register(g)
+    cold = flush(svc, h, "cold flush")
+    if cold[0] != "miss" or cold[3] != 1:
+        fail(f"cold flush: cache {cold[0]}, {cold[3]} groups; want a "
+             f"miss in one group")
+    warm = flush(svc, h, "warm flush")
+    restart = SolverService(pipeline=cfg, coarse_n=64, disk_dir=disk)
+    again = flush(restart, restart.store.get(h.fingerprint), "restart")
+    for label, run, source in (("warm flush", warm, "mem"),
+                               ("restart", again, "disk")):
+        if run[0] != source:
+            fail(f"{label}: cache {run[0]}, want {source}")
+        if not (np.array_equal(run[1], cold[1])
+                and np.array_equal(run[2], cold[2])):
+            fail(f"{label}: x or iterations differ from the cold flush")
+    print(f"service stats()['cache']: {json.dumps(svc.stats()['cache'])}"
+          f"; restarted: {json.dumps(restart.stats()['cache'])}",
+          flush=True)
+    del restart
 
-        # the K5 route: one 2-column request, against the fused service
-        kern = SolverService(pipeline=cfg, coarse_n=64, matvec_impl="kernel",
-                             store=svc.store)
-        req = dict(graph=h, b=b[:, :2], tol=TOL, maxiter=MAXITER)
-        kern.warmup(h)                       # the build is not the K5 path
-        kops.reset_launches()
-        t0 = time.perf_counter()
-        rk = kern.solve(**req)
-        torch.cuda.synchronize()
-        kern_s = time.perf_counter() - t0
-        launches = kops.launch_counts()["spmv_ell"]
-        rf = svc.solve(**req)
-        print(f"service K5 route: {kern_s:.3f} s (solve {rk.solve_ms:.2f} "
-              f"ms), iters {rk.iters.tolist()}, {launches} K5 launches; "
-              f"fused route solve {rf.solve_ms:.2f} ms, iters "
-              f"{rf.iters.tolist()}", flush=True)
-        if launches <= 0:
-            fail("the kernel-route service did not launch K5")
-        if not (np.array_equal(rk.x, rf.x)
-                and np.array_equal(rk.iters, rf.iters)):
-            fail("the K5 route's x or iterations differ from the fused "
-                 "route")
+    # the K5 route: one 2-column request, against the fused service
+    kern = SolverService(pipeline=cfg, coarse_n=64, matvec_impl="kernel",
+                         store=svc.store)
+    req = dict(graph=h, b=b[:, :2], tol=TOL, maxiter=MAXITER)
+    kern.warmup(h)                       # the build is not the K5 path
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    rk = kern.solve(**req)
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t0
+    launches = kops.launch_counts()["spmv_ell"]
+    rf = svc.solve(**req)
+    print(f"service K5 route: {kern_s:.3f} s (solve {rk.solve_ms:.2f} "
+          f"ms), iters {rk.iters.tolist()}, {launches} K5 launches; "
+          f"fused route solve {rf.solve_ms:.2f} ms, iters "
+          f"{rf.iters.tolist()}", flush=True)
+    if launches <= 0:
+        fail("the kernel-route service did not launch K5")
+    if not (np.array_equal(rk.x, rf.x)
+            and np.array_equal(rk.iters, rf.iters)):
+        fail("the K5 route's x or iterations differ from the fused "
+             "route")
     return launches
+
+
+def concurrent_builds(np, torch, rec, kops):
+    """Two builds at once on one CUDA service (K4's row list under
+    threads): serial builds of mesh2d(512, 512, seed=0) and mesh2d(384,
+    384, seed=1) with the service's own settings, then both again from two
+    threads, one through a daemon's ``miss`` and one through a synchronous
+    ``flush``.  Each hierarchy must equal its serial build bitwise, and K4
+    must launch once a round of the two builds."""
+    from repro_torch.core.graph import mesh2d
+    from repro_torch.pipeline import pdgrass_config
+    from repro_torch.serve import SolverDaemon
+    from repro_torch.solver import (SolveRequest, SolverService,
+                                    build_hierarchy)
+
+    svc = SolverService(pipeline=pdgrass_config(**CFG_KW), coarse_n=64)
+    graphs = [mesh2d(512, 512, seed=0), mesh2d(384, 384, seed=1)]
+    serial, serial_s = [], []
+    for g in graphs:
+        t0 = time.perf_counter()
+        serial.append(build_hierarchy(g, config=svc.pipeline,
+                                      coarse_n=svc.coarse_n,
+                                      contraction=svc.contraction,
+                                      device="cuda"))
+        torch.cuda.synchronize()
+        serial_s.append(time.perf_counter() - t0)
+    handles = [svc.register(g) for g in graphs]
+    b = [np.random.default_rng(i).standard_normal(g.n).astype(np.float32)
+         for i, g in enumerate(graphs)]
+    rounds = []
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    with recovery_route(rec, rounds), SolverDaemon(
+            svc, max_batch_delay_ms=1.0) as daemon:
+        t_daemon = daemon.submit(SolveRequest(graph=handles[0], b=b[0],
+                                              tol=TOL, maxiter=MAXITER))
+        t_sync = svc.submit(SolveRequest(graph=handles[1], b=b[1], tol=TOL,
+                                         maxiter=MAXITER))
+        svc.flush()
+        r_daemon = t_daemon.result(timeout=600.0)
+    r_sync = t_sync.result()
+    both_s = time.perf_counter() - t0
+    launches = kops.launch_counts()["similarity_mark"]
+    print(f"concurrent builds: serial {serial_s[0]:.3f} s and "
+          f"{serial_s[1]:.3f} s; both at once (daemon miss and sync flush, "
+          f"each with its solve) {both_s:.3f} s, setup "
+          f"{r_daemon.setup_ms:.1f} and {r_sync.setup_ms:.1f} ms; rounds "
+          f"{rounds} (sum {sum(rounds)}), K4 launches {launches}",
+          flush=True)
+    if (r_daemon.cache, r_sync.cache) != ("miss", "miss"):
+        fail(f"concurrent builds: caches {r_daemon.cache}, {r_sync.cache}; "
+             f"want two misses")
+    if not (r_daemon.converged and r_sync.converged):
+        fail("concurrent builds: a solve did not converge")
+    if launches != sum(rounds) or not launches:
+        fail(f"concurrent builds: K4 launched {launches} times over "
+             f"{sum(rounds)} rounds")
+    for h, want, name in zip(handles, serial, ("512", "384")):
+        _, (_, _, hier), _ = svc.artifacts(h)
+        if not same_hierarchy(torch, hier, want):
+            fail(f"concurrent builds: mesh2d({name}, {name})'s hierarchy "
+                 f"differs from its serial build")
+
+
+class _Recording:
+    """Stands for a daemon or a service in the replay functions (which only
+    call ``submit``) and keeps every ticket."""
+
+    def __init__(self, inner):
+        self.inner, self.tickets = inner, []
+
+    def submit(self, request, **kw):
+        ticket = self.inner.submit(request, **kw)
+        self.tickets.append(ticket)
+        return ticket
+
+
+def daemon_path(np, torch, g, disk, kops):
+    """The daemon at full width: a service over the main graph set up from
+    the disk tier of phase 6, a ``SolverDaemon`` with two weighted tenants
+    replaying 16 single-column requests at 8 Hz, then the synchronous path
+    on the schedule's first 8.  Returns the service and its handle."""
+    from repro_torch.pipeline import pdgrass_config
+    from repro_torch.serve import (SolverDaemon, TenantConfig,
+                                   make_schedule, replay_daemon, replay_sync)
+    from repro_torch.solver import SolverService
+
+    svc = SolverService(pipeline=pdgrass_config(**CFG_KW), coarse_n=64,
+                        disk_dir=disk)
+    t0 = time.perf_counter()
+    h = svc.register(g)
+    source = svc.warmup(h)[svc.pipeline.digest()]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if source != "disk":
+        fail(f"daemon path: setup came from {source!r}, want the disk tier")
+    schedule = make_schedule(n_requests=16, rate_hz=8.0, seed=7,
+                             tenants=(("paid", 4.0), ("free", 1.0)), width=1)
+    daemon = SolverDaemon(svc, max_batch_delay_ms=25, max_batch_columns=8,
+                          tenants={"paid": TenantConfig(weight=4.0),
+                                   "free": TenantConfig()})
+    on_daemon = _Recording(daemon)
+    kops.reset_launches()
+    rep_d = replay_daemon(on_daemon, h, schedule, tol=TOL, maxiter=MAXITER,
+                          timeout=600.0)
+    daemon.close()
+    counts = kops.launch_counts()
+    stats = daemon.stats()["daemon"]
+    on_sync = _Recording(svc)
+    rep_s = replay_sync(on_sync, h, schedule[:8], tol=TOL, maxiter=MAXITER)
+    rows = {"daemon": rep_d.to_record(), "sync": rep_s.to_record()}
+    for mode, row in rows.items():
+        row.update(device=torch.cuda.get_device_name(0))
+        print(f"replay {mode}: {json.dumps(row)}", flush=True)
+    print(f"daemon: setup {setup_s:.3f} s from {source}; {stats['cycles']} "
+          f"flush cycles, triggers {json.dumps(stats['triggers'])}; launches "
+          f"over the replay {json.dumps(counts)}", flush=True)
+    for mode, rep, n in (("daemon", rep_d, 16), ("sync", rep_s, 8)):
+        if rep.errors or len(rep.latencies_ms) != n:
+            fail(f"replay {mode}: {rep.errors} errors, "
+                 f"{len(rep.latencies_ms)} of {n} requests resolved")
+    if not stats["cycles"] < 16:
+        fail(f"the daemon ran {stats['cycles']} cycles for 16 requests")
+    for name in ("spmv_ell_batched", "cheby_step", "restrict_residual"):
+        if counts[name] <= 0:
+            fail(f"the daemon's flushes did not launch {name}")
+    bitwise = True
+    for i, (td, ts) in enumerate(zip(on_daemon.tickets, on_sync.tickets)):
+        rd, rs = td.result(), ts.result()
+        if not (rd.converged and rs.converged):
+            fail(f"replay request {i} did not converge")
+        if not np.array_equal(rd.iters, rs.iters):
+            fail(f"replay request {i}: {rd.iters.tolist()} iterations "
+                 f"through the daemon, {rs.iters.tolist()} through sync")
+        xd, xs = rd.x - rd.x[0], rs.x - rs.x[0]
+        if not np.allclose(xd, xs, rtol=0, atol=1e-3):
+            fail(f"replay request {i}: x parts between the modes by "
+                 f"{np.abs(xd - xs).max():.3e}")
+        bitwise &= np.array_equal(rd.x, rs.x)
+    print(f"daemon vs sync on the 8 shared requests: same iterations, x "
+          f"bitwise equal: {bitwise}", flush=True)
+    return svc, h
+
+
+def spectral_path(np, torch, g, svc, h, kops):
+    """The spectral services and the two score stages on the card, each
+    against a scipy f64 oracle (or the CPU for er_sample's noise)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as sla
+
+    from repro_torch.core.graph import mesh2d
+    from repro_torch.pipeline import Pipeline, pdgrass_config
+    from repro_torch.pipeline import stages
+    from repro_torch.serve import SolverDaemon
+    from repro_torch.solver import SolverService
+    from repro_torch.spectral import (ResistanceCache, effective_resistance,
+                                      fiedler_vector, harmonic_interpolate)
+
+    def laplacian(graph):
+        w = graph.weight.astype(np.float64)
+        A = sp.coo_matrix((np.r_[w, w], (np.r_[graph.src, graph.dst],
+                                         np.r_[graph.dst, graph.src])),
+                          shape=(graph.n, graph.n)).tocsr()
+        return (sp.diags(np.asarray(A.sum(axis=1)).ravel()) - A).tocsc()
+
+    # effective resistance through the daemon on the main graph
+    kops.reset_launches()
+    edges = [0, 1, g.m // 2, g.m - 1]
+    rng = np.random.default_rng(5)
+    far = np.stack([rng.integers(0, g.n // 8, 4),
+                    g.n - 1 - rng.integers(0, g.n // 8, 4)], axis=1)
+    pairs = np.concatenate([np.stack([g.src[edges], g.dst[edges]], axis=1),
+                            far])
+    cache = ResistanceCache()
+    t0 = time.perf_counter()
+    with SolverDaemon(svc, max_batch_delay_ms=25) as daemon:
+        r = effective_resistance(daemon, h, pairs, tol=TOL, maxiter=MAXITER,
+                                 cache=cache, result_timeout=600.0)
+        cycles = daemon.stats()["daemon"]["cycles"]
+        again = effective_resistance(daemon, h, pairs, tol=TOL,
+                                     maxiter=MAXITER, cache=cache,
+                                     result_timeout=600.0)
+        cycles_again = daemon.stats()["daemon"]["cycles"]
+    er_s = time.perf_counter() - t0
+    w_e = g.weight[edges].astype(np.float64)
+    print(f"effective resistance, main graph through the daemon: {er_s:.3f} "
+          f"s, {cycles} cycle(s); edges R {r[:4].tolist()} (1/w "
+          f"{(1 / w_e).tolist()}), far pairs R {r[4:].tolist()}; cache "
+          f"{json.dumps(cache.stats)}; launches "
+          f"{json.dumps(kops.launch_counts())}", flush=True)
+    if not (np.all(np.isfinite(r)) and np.all(r > 0)):
+        fail(f"effective resistances not positive: {r.tolist()}")
+    if not np.all(r[:4] <= (1 / w_e) * (1 + 1e-3)):
+        fail("an edge's resistance exceeds its own 1/w (Rayleigh "
+             "monotonicity)")
+    if not (np.array_equal(again, r) and cycles_again == cycles
+            and cache.hits == len(pairs)):
+        fail("a repeated resistance query was not a cache hit")
+
+    # the Fiedler pair of mesh2d(128, 128) against eigsh (shift-invert)
+    g128 = mesh2d(128, 128, seed=0)
+    svc128 = SolverService(pipeline=pdgrass_config(**CFG_KW), coarse_n=64)
+    t0 = time.perf_counter()
+    lam2, vec = fiedler_vector(svc128, g128, tol=1e-4)
+    fiedler_s = time.perf_counter() - t0
+    L = laplacian(g128)
+    vals, vecs = sla.eigsh(L, k=3, sigma=-1e-3, which="LM")
+    order = np.argsort(vals)
+    lam_ref, v_ref = vals[order[1]], vecs[:, order[1]]
+    cos = abs(float(vec @ v_ref)) / np.linalg.norm(vec)
+    resid = np.linalg.norm(L @ vec - lam2 * vec) / np.linalg.norm(vec)
+    print(f"fiedler_vector, mesh2d(128, 128): {fiedler_s:.3f} s, lambda2 "
+          f"{lam2:.9e} against eigsh {lam_ref:.9e} (rel err "
+          f"{abs(lam2 - lam_ref) / lam_ref:.3e}), |cos| {cos:.9f}, residual "
+          f"{resid:.3e}", flush=True)
+    if not (abs(lam2 - lam_ref) <= 1e-3 * lam_ref and cos >= 1 - 1e-3
+            and resid <= 1e-3):
+        fail("the Fiedler pair misses eigsh's (rtol 1e-3, |cos| >= "
+             "1 - 1e-3, residual <= 1e-3)")
+
+    # harmonic interpolation on mesh2d(256, 256), 1% boundary
+    g256 = mesh2d(256, 256, seed=0)
+    rng = np.random.default_rng(0)
+    bids = rng.choice(g256.n, size=g256.n // 100, replace=False)
+    xb = rng.standard_normal(bids.shape[0])
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    res = harmonic_interpolate(g256, bids, xb)
+    harm_s = time.perf_counter() - t0
+    k1 = kops.launch_counts()["spmv_ell_batched"]
+    L = laplacian(g256)
+    bmask = np.zeros(g256.n, dtype=bool)
+    bmask[bids] = True
+    x = np.zeros(g256.n)
+    x[bids] = xb
+    x[~bmask] = sla.spsolve(L[~bmask][:, ~bmask].tocsc(),
+                            -(L[~bmask][:, bmask] @ x[bmask]))
+    err = float(np.abs(res.x - x).max())
+    print(f"harmonic_interpolate, mesh2d(256, 256), {bids.shape[0]} boundary "
+          f"vertices: {harm_s:.3f} s, {res.iters.tolist()} PCG iterations, "
+          f"relres {res.relres.tolist()}, max err against spsolve {err:.3e}"
+          f"; K1 launches {k1}", flush=True)
+    if not (res.converged.all() and err <= 1e-6 and k1 > 0):
+        fail(f"harmonic interpolation: max err {err:.3e} > 1e-6, or not "
+             f"converged, or K1 not launched")
+
+    # the er_exact score stage on mesh2d(64, 64) against sparse LU
+    g64 = mesh2d(64, 64, seed=0)
+    cfg = pdgrass_config(alpha=0.1, score_mode="er_exact")
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    prep = Pipeline(cfg).prepare(g64, device="cuda")
+    sparsifier = Pipeline(cfg).run(g64, prepared=prep, device="cuda")
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    m_off = prep.m_off
+    off = prep.off_edge_id
+    r_card = (prep.problem.score[:m_off].double().cpu().numpy()
+              / g64.weight[off].astype(np.float32).astype(np.float64))
+    lu = sla.splu(laplacian(g64)[1:, 1:].tocsc())   # grounded at vertex 0
+    u, v = g64.src[off], g64.dst[off]
+    r_lu = np.empty(m_off)
+    for lo in range(0, m_off, 1024):
+        B = np.zeros((g64.n, min(1024, m_off - lo)))
+        cols = np.arange(B.shape[1])
+        B[u[lo:lo + 1024], cols] += 1.0
+        B[v[lo:lo + 1024], cols] -= 1.0
+        X = np.vstack([np.zeros((1, B.shape[1])), lu.solve(B[1:])])
+        r_lu[lo:lo + 1024] = X[u[lo:lo + 1024], cols] - X[v[lo:lo + 1024],
+                                                          cols]
+    rel = float(np.max(np.abs(r_card - r_lu) / r_lu))
+    print(f"er_exact, mesh2d(64, 64): {exact_s:.3f} s for prepare and run, "
+          f"{m_off} off-tree resistances, max rel err against sparse LU "
+          f"{rel:.3e}; recovered {sparsifier.stats['n_recovered']}; "
+          f"launches {json.dumps(kops.launch_counts())}", flush=True)
+    if rel > 1e-3 or not sparsifier.stats["n_recovered"]:
+        fail(f"er_exact resistances part from sparse LU by {rel:.3e}")
+
+    # the er_sample score stage: the noise bits on the card and the CPU
+    g128s = mesh2d(128, 128, seed=0)
+    cfg = pdgrass_config(alpha=0.05, score_mode="er_sample", seed=3)
+    masks = {dev: Pipeline(cfg).run(g128s, device=dev).recovered_mask
+             for dev in ("cuda", "cpu")}
+    n_bits = g128s.m
+    bits_equal = torch.equal(stages.random_bits(3, n_bits, "cuda").cpu(),
+                             stages.random_bits(3, n_bits, "cpu"))
+    noise_err = float((stages.gumbel(3, n_bits, "cuda").cpu()
+                       - stages.gumbel(3, n_bits, "cpu")).abs().max())
+    print(f"er_sample, mesh2d(128, 128): {n_bits} noise bits equal on the "
+          f"card and the CPU: {bits_equal}; Gumbel values max abs "
+          f"difference {noise_err:.3e}; masks equal: "
+          f"{np.array_equal(masks['cuda'], masks['cpu'])} "
+          f"({int(masks['cuda'].sum())} recovered)", flush=True)
+    if not bits_equal:
+        fail("er_sample's noise bits differ between the card and the CPU")
+    if not np.array_equal(masks["cuda"], masks["cpu"]):
+        fail("er_sample's recovered masks differ between the card and the "
+             "CPU")
 
 
 def ell_to_csr(torch, idx, val):
@@ -551,13 +893,14 @@ def k4_bound(torch, args):
     return bms, by, nbytes, sig_rows, cells
 
 
-def k45_records(np, torch, kops, ref, k4_runs, k4_launches, idx, val,
-                k5_launches):
+def k45_records(np, torch, kops, ref, k4_runs, main_k4_runs, k4_launches,
+                idx, val, k5_launches):
     """K4 on the inputs of the K4 path's first launch and summed over all
-    of that path's launches, and K5 on the main graph's operator: error
-    against the plain version, device ms beside the plain version's, the
-    bound and (K5) ``torch.sparse.mm``.  ``k4_launches`` is K4's count
-    over the main path's build."""
+    of that path's launches and over all of the main-path build's
+    (``main_k4_runs``), and K5 on the main graph's operator: error against
+    the plain version, device ms beside the plain version's, the bound and
+    (K5) ``torch.sparse.mm``.  ``k4_launches`` is K4's count over the main
+    path's build."""
     k4_args = k4_runs[0]
     csu, csv, cbeta, cseg, esu, esv, eseg = k4_args
     K, c1 = csu.shape
@@ -589,14 +932,25 @@ def k45_records(np, torch, kops, ref, k4_runs, k4_launches, idx, val,
     # device time; thousands of launches queued at once would fill the
     # launch queue and time the host): the device time the path spends in
     # K4, against the sum of the launches' bounds
-    per_ms = [time_ms(torch, lambda: kops.similarity_mark(*a), reps=5)
-              for a in k4_runs]
-    path_ms, median = sum(per_ms), sorted(per_ms)[len(per_ms) // 2]
-    path_bound = sum(k4_bound(torch, a)[0] for a in k4_runs)
-    print(f"K4 over the K4 path's {len(k4_runs)} launches: device time "
-          f"{path_ms:.4f} ms in all (median {median:.4f} ms, max "
-          f"{max(per_ms):.4f} ms a launch), summed bound {path_bound:.4f} "
-          f"ms, ratio {path_ms / path_bound:.2f}", flush=True)
+    for label, runs in (("the K4 path's", k4_runs),
+                        ("the main-path build's", main_k4_runs)):
+        per_ms = [time_ms(torch, lambda: kops.similarity_mark(*a), reps=5)
+                  for a in runs]
+        path_ms, median = sum(per_ms), sorted(per_ms)[len(per_ms) // 2]
+        path_bound = sum(k4_bound(torch, a)[0] for a in runs)
+        print(f"K4 over {label} {len(runs)} launches: device time "
+              f"{path_ms:.4f} ms in all (median {median:.4f} ms, max "
+              f"{max(per_ms):.4f} ms a launch), summed bound "
+              f"{path_bound:.4f} ms, ratio {path_ms / path_bound:.2f}",
+              flush=True)
+    # the plain version takes up to 0.85 s a launch at level 0: hold the
+    # first, middle and last launch of the build against it
+    for i in sorted({0, len(main_k4_runs) // 2, len(main_k4_runs) - 1}):
+        a = main_k4_runs[i]
+        if not torch.equal(kops.similarity_mark(*a),
+                           ref.similarity_mark_ref(*a)):
+            fail(f"K4 is not bitwise equal to its plain version on the "
+                 f"main-path build's launch {i}")
 
     n, L = idx.shape
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1185,11 +1539,14 @@ def main() -> int:
               if name in ("spmv_ell_batched", "cheby_step",
                           "restrict_residual", "similarity_mark")}
 
-    # two traced builds give the per-stage seconds of each marking route
+    # two traced builds give the per-stage seconds of each marking route;
+    # the K4 build keeps every K4 launch's inputs for phase 8
+    main_k4_runs = []
     traced = {route: traced_build(torch, g, build_hierarchy, rec, get_tracer,
-                                  **force)
-              for route, force in (("K4", {}),
-                                   ("chunked", {"use_kernel": False}))}
+                                  kops, record, **force)
+              for route, record, force in (
+                  ("K4", main_k4_runs, {}),
+                  ("chunked", None, {"use_kernel": False}))}
     iters = res.iters.tolist()
     relres = res.relres.tolist()
     print(f"hierarchy: depth {hier.depth}, level sizes {hier.level_sizes}, "
@@ -1202,9 +1559,10 @@ def main() -> int:
               f"s; stages (s, host spans): " + json.dumps(
                   {k: round(v, 4) for k, v in sorted(stage_s.items())}),
               flush=True)
-    if counts["similarity_mark"] != sum(rounds):
+    if not counts["similarity_mark"] == sum(rounds) == len(main_k4_runs):
         fail(f"K4 launched {counts['similarity_mark']} times over the main "
-             f"path's build, which ran {sum(rounds)} rounds")
+             f"path's build, which ran {sum(rounds)} rounds (the traced K4 "
+             f"build: {len(main_k4_runs)} launches)")
     for route, (h, _, _) in traced.items():
         if not same_hierarchy(torch, h, hier):
             fail(f"the {route} route's traced build differs from the main "
@@ -1255,8 +1613,24 @@ def main() -> int:
     phase_done("k4_path")
 
     # ---- phase 6: the service path, and its K5 route -------------------
-    k5_launches = service_path(np, torch, g, b, kops)
+    disk = tempfile.TemporaryDirectory()   # phase 6's disk tier, reused
+    k5_launches = service_path(np, torch, g, b, kops, disk.name)
     phase_done("service_path")
+
+    # ---- phase 6b: two builds at once on one service (K4 under threads) --
+    concurrent_builds(np, torch, rec, kops)
+    phase_done("concurrent_builds")
+
+    # ---- phase 6c: the daemon at full width, against the sync path ------
+    svc, h = daemon_path(np, torch, g, disk.name, kops)
+    phase_done("daemon_path")
+
+    # ---- phase 6d: spectral services and the two score stages -----------
+    spectral_path(np, torch, g, svc, h, kops)
+    del svc, h
+    disk.cleanup()
+    torch.cuda.empty_cache()
+    phase_done("spectral_path")
 
     # ---- phase 7: the LM serving path (K6) -------------------------------
     k6_launches, k6_args = lm_path(np, torch, kops)
@@ -1265,7 +1639,7 @@ def main() -> int:
     # ---- phase 8: kernels at their paths' shapes -------------------------
     records = kernel_records(torch, vf, ref, hier, idx, val, counts)
     trip_profile(torch, solver, b_dev)
-    records += k45_records(np, torch, kops, ref, k4_runs,
+    records += k45_records(np, torch, kops, ref, k4_runs, main_k4_runs,
                            counts["similarity_mark"], idx, val, k5_launches)
     records.append(k6_record(torch, kops, ref, k6_args, k6_launches,
                              max_sm_clock_mhz()))

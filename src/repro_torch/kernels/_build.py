@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -44,6 +45,7 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_made = threading.Lock()   # one thread runs nvcc on first use
 build_info: dict = {}
 
 
@@ -113,13 +115,14 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _lib_made:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

@@ -11,20 +11,27 @@ run can show which kernels it went through.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 launches = dict.fromkeys(("spmv_ell_batched", "cheby_step",
                           "restrict_residual", "similarity_mark",
                           "spmv_ell", "ssm_scan"), 0)
+# wrappers may launch from several threads (a daemon's flusher beside the
+# caller's flush): the read-modify-write of a count takes this lock
+launches_lock = threading.Lock()
 
 
 def count(name: str) -> None:
-    launches[name] += 1
+    with launches_lock:
+        launches[name] += 1
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with launches_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def on_cuda(*tensors) -> bool:

@@ -23,7 +23,8 @@ from repro_torch.kernels.vcycle_fused import (  # noqa: F401
 
 def launch_counts() -> dict:
     """``{kernel name: launches}`` over K1-K6 since the last reset."""
-    return dict(_launch.launches)
+    with _launch.launches_lock:
+        return dict(_launch.launches)
 
 
 def similarity_mark(csu, csv, cbeta, cseg, esu, esv, eseg,

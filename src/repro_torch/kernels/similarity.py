@@ -19,13 +19,19 @@ when they lie on the CPU.  Each launch adds one to its count in
 :data:`repro_torch.kernels._launch.launches`.
 
 The list of rows that the row stream hands to the second kernel lives in
-one scratch buffer a device (:data:`ROW_CAPACITY` rows, 8 MB), zeroed when
-first made; the launches on a device number themselves so that each
-leaves the next one a zero count.  One launch at a time may use a
-device's buffer, as on the port's single stream.  A warp whose rows do
-not fit walks them itself, so the result never depends on the capacity.
+one scratch buffer a (device, stream) (:data:`ROW_CAPACITY` rows, 8 MB),
+zeroed when first made.  The launches that share a buffer number
+themselves so that each leaves the next one a zero count, which holds
+only if they reach the stream in the order of their numbers: a launch
+takes its number and is enqueued under the buffer's lock, so builds on
+several threads may share a stream.  Launches on two streams are not
+ordered on the device, so each stream has a buffer of its own.  A warp
+whose rows do not fit walks them itself, so the result never depends on
+the capacity.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -34,18 +40,40 @@ from repro_torch.kernels._launch import count, on_cuda, require, stream
 
 _MAX_C1 = 16   # the CUDA kernel's template instances cover c1 = 1..16
 ROW_CAPACITY = 1 << 21    # rows the device list holds
-_scratch: dict = {}       # device -> [int32 [2 + ROW_CAPACITY], launches]
 
 
-def _row_scratch(device):
-    """The device's scratch buffer and the number of this launch."""
-    entry = _scratch.get(device)
-    if entry is None:
-        entry = _scratch[device] = [
-            torch.zeros(2 + ROW_CAPACITY, dtype=torch.int32, device=device),
-            0]
-    entry[1] += 1
-    return entry[0], entry[1] & 0x3FFFFFFF
+class _RowScratch:
+    """One (device, stream)'s row list, its two counters and the number of
+    its last launch."""
+
+    def __init__(self, device):
+        self.buf = torch.zeros(2 + ROW_CAPACITY, dtype=torch.int32,
+                               device=device)
+        # lock: self._lock
+        #   _epoch
+        self._lock = threading.Lock()
+        self._epoch = 0
+
+    def launch(self, enqueue):
+        """``enqueue(scratch pointer, launch number)`` under the lock, so
+        that the launches reach the stream in the order of their numbers.
+        The lock covers the host-side enqueue only, never a sync."""
+        with self._lock:
+            self._epoch += 1
+            return enqueue(self.buf.data_ptr(), self._epoch & 0x3FFFFFFF)
+
+
+_scratch: dict = {}       # (device, stream handle) -> _RowScratch
+_scratch_made = threading.Lock()
+
+
+def _row_scratch(device, stream_handle) -> _RowScratch:
+    key = (device, stream_handle)
+    with _scratch_made:
+        entry = _scratch.get(key)
+        if entry is None:
+            entry = _scratch[key] = _RowScratch(device)
+    return entry
 
 
 def similarity_mark(csu, csv, cbeta, cseg, esu, esv, eseg):
@@ -83,11 +111,14 @@ def similarity_mark(csu, csv, cbeta, cseg, esu, esv, eseg):
         raise ValueError(f"similarity_mark takes 1 <= c1 <= {_MAX_C1}, "
                          f"got {c1}")
     out = torch.empty((m,), dtype=torch.bool, device=esu.device)
-    scratch, epoch = _row_scratch(esu.device)
-    check(library().repro_similarity_mark(
-        csu.data_ptr(), csv.data_ptr(), cbeta.data_ptr(), cseg.data_ptr(),
-        esu.data_ptr(), esv.data_ptr(), eseg.data_ptr(), out.data_ptr(), K, m,
-        c1, scratch.data_ptr(), ROW_CAPACITY, epoch, stream()),
+    if m == 0:   # the library launches nothing: take no launch number
+        return out
+    lib, s = library(), stream()
+    check(_row_scratch(esu.device, s).launch(
+        lambda scratch, epoch: lib.repro_similarity_mark(
+            csu.data_ptr(), csv.data_ptr(), cbeta.data_ptr(),
+            cseg.data_ptr(), esu.data_ptr(), esv.data_ptr(), eseg.data_ptr(),
+            out.data_ptr(), K, m, c1, scratch, ROW_CAPACITY, epoch, s)),
         "similarity_mark")
     count("similarity_mark")
     return out

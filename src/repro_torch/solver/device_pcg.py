@@ -173,10 +173,16 @@ def make_vcycle(hier: Hierarchy, *, degree: int = 2,
                 return torch.zeros_like(r)
             # one batched solve per column, so a column's result does not
             # depend on its neighbours (a multi-column triangular solve
-            # blocks over the columns)
-            y = torch.cholesky_solve(r[1:].t().unsqueeze(-1),
-                                     hier.coarse_chol, upper=False)
-            y = y.squeeze(-1).t()
+            # blocks over the columns).  On a CUDA device PyTorch solves a
+            # batch of one with cuSOLVER and a larger batch with MAGMA,
+            # which round differently: a lone column rides with a zero
+            # one, so that every width takes the batched route
+            k = r.shape[1]
+            rhs = r[1:].t().unsqueeze(-1)
+            if k == 1:
+                rhs = torch.cat([rhs, torch.zeros_like(rhs)])
+            y = torch.cholesky_solve(rhs, hier.coarse_chol, upper=False)
+            y = y[:k].squeeze(-1).t()
             return _center(torch.cat([torch.zeros_like(r[:1]), y]))
 
     def cycle(l: int, r):
@@ -221,11 +227,17 @@ def make_jacobi(diag) -> Callable:
 _PCG_CHECK_EVERY = 8   # PCG trips between host tests of "all done"
 
 
-def _pcg_loop(matvec: Callable, b, msolve: Callable, tol,
-              maxiter) -> BatchedPCGResult:
+def _pcg_loop(matvec: Callable, b, msolve: Callable, tol, maxiter,
+              colsum: Callable = colsum,
+              center: Callable = _center) -> BatchedPCGResult:
     """The batched PCG loop: per-column alpha/beta with converged columns
     frozen, the ``tol_inner = 0.5 * tol`` target and van der Vorst residual
-    replacement every 50 trips, as in the reference."""
+    replacement every 50 trips, as in the reference.
+
+    ``colsum(v) -> [k]`` sums a ``[rows, k]`` tensor over its rows and
+    ``center`` projects the final ``x`` out of the operator's nullspace:
+    the Laplacian's constants by default, the identity for a nonsingular
+    operator (the harmonic Dirichlet solve)."""
     k = b.shape[1]
     dev = b.device
     bnorm = torch.sqrt(colsum(b * b))
@@ -263,7 +275,7 @@ def _pcg_loop(matvec: Callable, b, msolve: Callable, tol,
             p = torch.where(active, z + beta * p, p)
             rz = torch.where(active, rz_new, rz)
             it += 1
-    x = _center(x)
+    x = center(x)
     relres = torch.sqrt(colsum((b - matvec(x)) ** 2)) / bn  # true residual
     return BatchedPCGResult(x=x, iters=iters, relres=relres,
                             converged=relres <= tol)

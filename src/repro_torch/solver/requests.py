@@ -357,9 +357,9 @@ class SolveTicket(int):
     flushing the owning service first if the ticket is still pending.
     Tickets are resolvable in any order — each holds its own outcome.
 
-    Tickets issued through a background flusher (the reference's
-    ``SolverDaemon``, not ported yet) carry a per-ticket
-    ``threading.Event`` instead of a service back-ref:
+    Tickets issued through a background flusher
+    (:class:`~repro_torch.serve.solver_daemon.SolverDaemon`) carry a
+    per-ticket ``threading.Event`` instead of a service back-ref:
     ``result(timeout=...)`` then *blocks* until the background flusher
     resolves the ticket (raising ``TimeoutError`` on expiry) — no caller
     ever triggers a flush.  ``done()`` stays non-blocking in both modes.

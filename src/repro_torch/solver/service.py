@@ -69,6 +69,24 @@ from repro_torch.solver.requests import (AdmissionError, GraphHandle,
 _SCHEMA = "solver-torch-v1"
 
 
+def _two_wide(a: np.ndarray) -> np.ndarray:
+    """``[n, k]`` with at least two columns (a zero column beside a single
+    one).  numpy reduces an array of two or more columns over its rows one
+    row at a time, every column alike, but a single column pairwise: so a
+    column's mean or norm taken through here has the same bits in a batch
+    of any width, and a request batched with others solves as it does
+    alone."""
+    return a if a.shape[1] > 1 else np.concatenate([a, 0 * a], axis=1)
+
+
+def _col_mean(a: np.ndarray) -> np.ndarray:
+    return _two_wide(a).mean(axis=0)[:a.shape[1]]
+
+
+def _col_norm(a: np.ndarray) -> np.ndarray:
+    return np.linalg.norm(_two_wide(a), axis=0)[:a.shape[1]]
+
+
 def _next_pow2(k: int) -> int:
     p = 1
     while p < k:
@@ -592,7 +610,7 @@ class SolverService:
         # component of b is solvable.  Center here so the residual
         # measurement below targets the solvable system (else the
         # unsolvable mean would read as non-convergence).
-        B -= B.mean(axis=0)
+        B -= _col_mean(B)
         # Per-column tolerance and iteration budget: each request keeps
         # its own contract even when batched with stricter/larger
         # neighbors.  Padding columns are inert BY CONSTRUCTION — tol=inf
@@ -631,13 +649,13 @@ class SolverService:
         # The residual matvec runs over the Graph's own CSR arrays
         # (numpy f64, no scipy on the solve path).
         B64 = B.astype(np.float64)
-        bn = np.maximum(np.linalg.norm(B64, axis=0),
+        bn = np.maximum(_col_norm(B64),
                         np.finfo(np.float64).tiny)
         refinements = 0
         resid = B64 - g.laplacian_matvec(x)
-        relres = np.linalg.norm(resid, axis=0) / bn
+        relres = _col_norm(resid) / bn
         while refinements < self.max_refine and np.any(relres > tol_col):
-            rc = resid - resid.mean(axis=0)
+            rc = resid - _col_mean(resid)
             # corrections draw from each column's remaining budget
             with tracer.span("solver.refine", pass_=refinements + 1,
                              k=k, k_pad=k_pad), \
@@ -650,7 +668,7 @@ class SolverService:
                                  device=self.device))
             x_new = x + corr.x.cpu().numpy().astype(np.float64)
             resid_new = B64 - g.laplacian_matvec(x_new)
-            relres_new = np.linalg.norm(resid_new, axis=0) / bn
+            relres_new = _col_norm(resid_new) / bn
             # accept per column whenever the correction improved it ...
             take = relres_new < relres
             x = np.where(take, x_new, x)

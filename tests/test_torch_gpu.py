@@ -330,6 +330,137 @@ def test_gpu_service_matches_cpu_service(cuda):
 
 
 
+def _same_hierarchy(a, b) -> bool:
+    """Level sizes, and every level's agg, ELL slabs and diagonal, bitwise."""
+    return a.level_sizes == b.level_sizes and all(
+        torch.equal(x, y) for la, lb in zip(a.levels, b.levels)
+        for x, y in ((la.agg, lb.agg), (la.idx, lb.idx), (la.val, lb.val),
+                     (la.diag, lb.diag)))
+
+
+@pytest.mark.gpu
+def test_gpu_concurrent_builds_equal_serial_builds(cuda, monkeypatch):
+    """Two threads build different graphs on one CUDA service at once, one
+    through a daemon's ``miss`` and one through a synchronous flush: each
+    hierarchy is bitwise equal to its serial build, and K4 launched once a
+    round of the two builds (its row list is shared by the launches of one
+    stream, numbered and enqueued under one lock)."""
+    from repro_torch.serve import SolverDaemon
+
+    graphs = [mesh2d(64, 64, seed=0), mesh2d(48, 48, seed=1)]
+    svc = SolverService(alpha=0.05, device=cuda)
+    serial = [build_hierarchy(g, config=svc.pipeline, coarse_n=svc.coarse_n,
+                              contraction=svc.contraction, device=cuda)
+              for g in graphs]
+    rounds = []
+    engine = recovery.recover_rounds
+
+    def counted(*args, **kw):
+        out = engine(*args, **kw)
+        rounds.append(out[1].rounds)
+        return out
+
+    monkeypatch.setattr(recovery, "recover_rounds", counted)
+    handles = [svc.register(g) for g in graphs]
+    b = [np.random.default_rng(i).standard_normal(g.n).astype(np.float32)
+         for i, g in enumerate(graphs)]
+    before = kops.launch_counts()["similarity_mark"]
+    with SolverDaemon(svc, max_batch_delay_ms=1.0) as d:
+        t0 = d.submit(SolveRequest(graph=handles[0], b=b[0], tol=1e-4))
+        t1 = svc.submit(SolveRequest(graph=handles[1], b=b[1], tol=1e-4))
+        svc.flush()
+        r0 = t0.result(timeout=300.0)
+    r1 = t1.result()
+    assert r0.cache == r1.cache == "miss"
+    assert r0.converged and r1.converged
+    assert kops.launch_counts()["similarity_mark"] - before == sum(rounds) > 0
+    for h, want in zip(handles, serial):
+        _, (_, _, hier), source = svc.artifacts(h)
+        assert source == "mem"
+        assert _same_hierarchy(hier, want)
+
+
+@pytest.mark.gpu
+def test_gpu_batched_columns_match_single_solves(cuda):
+    """On the card too, each column of a batched solve equals its solo
+    solve bitwise, x and iterations: the kernels treat every column alike,
+    and the coarse solve takes one batched route at every width."""
+    g = mesh2d(64, 64, seed=2)
+    hier = build_hierarchy(g, alpha=0.05, device=cuda)
+    solve = make_solver(*ell_laplacian(g, device=cuda), hier, device=cuda)
+    b = np.random.default_rng(3).standard_normal((g.n, 5)).astype(np.float32)
+    b -= b.mean(axis=0)
+    res = solve(b, tol=1e-5, maxiter=2000)
+    for j in range(b.shape[1]):
+        one = solve(b[:, j:j + 1], tol=1e-5, maxiter=2000)
+        assert torch.equal(res.x[:, j], one.x[:, 0])
+        assert int(res.iters[j]) == int(one.iters[0])
+
+
+@pytest.mark.gpu
+def test_gpu_k4_launches_from_threads(cuda):
+    """Eight threads launch K4 on their own problems on one stream: every
+    result bitwise equal to the plain version, and the launch count exact."""
+    import threading
+
+    problems = [[torch.as_tensor(a, device=cuda) for a in k4_layout(name)]
+                for name in K4_LAYOUTS]
+    wants = [kref.similarity_mark_ref(*args) for args in problems]
+    bad, per = [], 25
+    before = kops.launch_counts()["similarity_mark"]
+
+    def worker(tid):
+        for i in range(per):
+            j = (tid + i) % len(problems)
+            if not torch.equal(kops.similarity_mark(*problems[j]), wants[j]):
+                bad.append((tid, i))
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120.0)
+    assert not any(th.is_alive() for th in threads)
+    assert not bad, bad
+    assert kops.launch_counts()["similarity_mark"] - before == 8 * per
+
+
+@pytest.mark.gpu
+def test_gpu_daemon_resolves_without_flush(cuda):
+    from repro_torch.serve import SolverDaemon
+
+    svc = SolverService(alpha=0.05, device=cuda)
+    g = mesh2d(24, 24, seed=3)
+    h = svc.register(g)
+    b = np.random.default_rng(0).standard_normal((g.n, 3)).astype(np.float32)
+    with SolverDaemon(svc, max_batch_delay_ms=5.0) as d:
+        assert d.device.type == "cuda"
+        tickets = [d.submit(SolveRequest(graph=h, b=b[:, j]))
+                   for j in range(3)]
+        rs = [t.result(timeout=300.0) for t in tickets]
+    assert svc.stats()["scheduler"]["flushes"] == 0
+    assert all(r.converged and r.relres.max() <= 1e-5 for r in rs)
+    assert svc.stats()["solves_by_config"][svc.pipeline.digest()] == 3
+
+
+@pytest.mark.gpu
+def test_gpu_er_sample_bits_equal_cpu(cuda):
+    from repro_torch.pipeline import stages
+
+    for seed in (0, 7, 2 ** 31 + 3):
+        for n in (1, 4097, 300_001):
+            assert torch.equal(stages.random_bits(seed, n, cuda).cpu(),
+                               stages.random_bits(seed, n, "cpu"))
+            torch.testing.assert_close(stages.gumbel(seed, n, cuda).cpu(),
+                                       stages.gumbel(seed, n, "cpu"),
+                                       rtol=0, atol=2.0 ** -20)
+    g = mesh2d(32, 32, seed=1)
+    cfg = pdgrass_config(alpha=0.05, score_mode="er_sample", seed=3)
+    masks = [Pipeline(cfg).run(g, device=dev).recovered_mask
+             for dev in (cuda, "cpu")]
+    np.testing.assert_array_equal(*masks)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("S", [1, 16, 37])

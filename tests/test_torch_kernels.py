@@ -317,6 +317,63 @@ def test_k4_static_skip_of_pairs_past_c():
     assert np.asarray(want).tolist() == [False, True]
 
 
+def _threads(target, n_threads):
+    """Run ``target(tid)`` on ``n_threads`` threads with a short switch
+    interval; every thread must finish within 60 s."""
+    import sys
+    import threading
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=target, args=(tid,))
+                   for tid in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60.0)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(th.is_alive() for th in threads)
+
+
+def test_k4_launch_numbers_reach_the_stream_in_order():
+    """Launches on one (device, stream) share a row list whose counters
+    hold only when launch ``n + 1`` is enqueued after launch ``n``: under
+    16 threads, the enqueue callbacks see the numbers 1, 2, 3, ... in
+    their own order, and the scratch is one per (device, stream)."""
+    import time
+
+    from repro_torch.kernels import similarity as ksim
+
+    scratch = ksim._RowScratch("cpu")
+    seen = []
+
+    def enqueue(ptr, epoch):
+        time.sleep(0)               # ctypes lets go of the GIL here
+        seen.append(epoch)          # the launch reaches the stream
+        return 0
+
+    _threads(lambda tid: [scratch.launch(enqueue) for _ in range(200)], 16)
+    assert seen == list(range(1, 16 * 200 + 1))
+    a = ksim._row_scratch(torch.device("cpu"), 11)
+    assert ksim._row_scratch(torch.device("cpu"), 11) is a
+    assert ksim._row_scratch(torch.device("cpu"), 12) is not a
+    for key in [(torch.device("cpu"), 11), (torch.device("cpu"), 12)]:
+        del ksim._scratch[key]
+
+
+def test_launch_counts_exact_under_threads():
+    from repro_torch.kernels import _launch
+
+    before = tops.launch_counts()["similarity_mark"]
+    _threads(lambda tid: [_launch.count("similarity_mark")
+                          for _ in range(2000)], 16)
+    assert tops.launch_counts()["similarity_mark"] == before + 16 * 2000
+    with _launch.launches_lock:
+        _launch.launches["similarity_mark"] = before
+
+
 def test_k4_on_cpu_counts_nothing():
     before = tops.launch_counts()
     args = [torch.as_tensor(a) for a in

@@ -267,9 +267,17 @@ def test_pcg_host_is_the_reference_copy(graphs):
 
 @pytest.mark.parametrize("kind", ["er_sample", "er_exact"])
 def test_unported_score_stages_raise(graphs, kind):
-    cfg = tconfig(alpha=0.05, chunk=CHUNK, score_mode=kind)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TPipeline(cfg).run(graphs[1]["mesh12"], device="cpu")
+    """``er_sample`` and ``er_exact`` were the score stages left to port;
+    they are ported, so neither raises: each runs on mesh12 and recovers
+    the reference's edges (the full parity tests are in
+    ``tests/test_torch_spectral.py``)."""
+    got = TPipeline(tconfig(alpha=0.05, chunk=CHUNK, score_mode=kind)).run(
+        graphs[1]["mesh12"], device="cpu")
+    want = JPipeline(jconfig(alpha=0.05, chunk=CHUNK, score_mode=kind)).run(
+        graphs[0]["mesh12"])
+    assert got.stats["n_recovered"] > 0
+    np.testing.assert_array_equal(got.recovered_mask,
+                                  np.asarray(want.recovered_mask))
 
 
 @pytest.mark.parametrize("engine", ["distributed"])

@@ -732,6 +732,25 @@ def test_service_flush_groups_requests_into_one_batch():
                                atol=1e-3)
 
 
+def test_request_batched_with_others_solves_as_it_does_alone():
+    """A request's x, iterations and f64 relres do not depend on the width
+    of the batch it rides in (the service centres and measures each column
+    on its own), so the daemon's batches answer as the sync path does."""
+    g = mesh2d(16, 16, seed=4)
+    svc = SolverService(device="cpu", alpha=0.05)
+    rng = np.random.default_rng(8)
+    bs = [rng.standard_normal(g.n).astype(np.float32) + 3.0
+          for _ in range(6)]
+    tickets = [svc.submit(SolveRequest(graph=g, b=b, tol=1e-4)) for b in bs]
+    svc.flush()
+    for t, b in zip(tickets, bs):
+        alone = svc.solve(g, b, tol=1e-4)
+        batched = t.result()
+        np.testing.assert_array_equal(batched.x, alone.x)
+        np.testing.assert_array_equal(batched.iters, alone.iters)
+        np.testing.assert_array_equal(batched.relres, alone.relres)
+
+
 def test_solve_does_not_drain_submitted_tickets():
     g = mesh2d(10, 10, seed=24)
     svc = SolverService(device="cpu", alpha=0.05)
