@@ -76,6 +76,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      Laplacian (rtol 1e-3), and ``er_sample`` on mesh2d(128, 128): its
      noise bits on the card equal to the CPU's, the recovered masks
      equal;
+  6e. the distributed planes over ``make_mesh((8,), ("data",))``, every
+     shard on the card: (a) ``recover_mixed`` on phase 5's level-0
+     problem bitwise equal to ``recover_rounds(stop_at_target=False)``,
+     K4's launches equal to the rounds summed over the shards; (b) the
+     same on ``star_hub(100000, extra=100000, seed=5)``, whose hub subtask
+     is a giant that the inner engine takes (its rounds and
+     ``dist.collective_bytes`` printed); (c) ``build_hierarchy(
+     contraction="sharded")`` of the main graph against phase 3's device
+     contraction: level sizes and agg bitwise equal on every level whose
+     input graph is (level 0's always is), each level's largest
+     coarse-weight parting printed; (d) ``make_solver(mesh=...,
+     matvec_impl="fused")`` on phase 3's hierarchy and right-hand sides:
+     8 of 8 columns at true relres <= 1e-3, iterations beside phase 3's,
+     K1 launches a solve, a ``torch.profiler`` trip profile; (e) on
+     mesh2d(256, 256) the sharded ``"fused"`` and ``"ref"`` solves with
+     +-0 iterations and x bitwise, a lone column equal to its column in
+     the batch; (f) ``SolverService(mesh=...)`` on mesh2d(256, 256): a
+     ``miss``, a ``mem`` hit, the descriptor ``("mesh", "data", 8)``, a key
+     apart from a single-device service's;
   7. the LM serving path: falcon-mamba-7b at full width (64 layers,
      7,006,326,784 random parameters from ``torch.Generator("cuda")``
      seed 0), ``repro_torch.serve.Engine(batch=4)`` answering 4 greedy
@@ -99,14 +118,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      path gives them (bf16, B and C strided views) and cast to float32,
      with the exponentials' issue-rate term printed beside its bound; and
      the fused solve's device time a PCG trip (``torch.profiler`` over 30
-     trips).
+     trips); K1 also at a shard's shape (shard 0 of the main operator's
+     8-shard split, on its halo-extended x, k = 8), and the K1 and K4
+     records carry the sharded paths' launches (``"sharded"``).
 
 Each path's launch counts are set to 0 just before it and read just after:
 K1-K4 over phase 3 (the ``kernels`` record gives K4's main-path launches;
 phase 5's K4 route is counted and printed on its own), K5 over phase 6's
 kernel-route solve, K4 over phase 6b's two builds, K1-K3 over phase 6c's
-daemon replay, each spectral call of phase 6d on its own, K6 over phase
-7's first ``generate``.
+daemon replay, each spectral call of phase 6d on its own, K4 over each
+of phase 6e's two ``recover_mixed`` runs and K1 over its sharded solve,
+K6 over phase 7's first ``generate``.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -129,6 +151,8 @@ F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES_PER_S = 2e9      # at most the H100's SM clock, so sleeps run long
 MAIN_ROWS = 1024
 TOL, MAXITER, K = 1e-3, 2000, 8
+SHARDS = 8                    # phase 6e's mesh, one card
+STAR = (100_000, 100_000)     # phase 6e (b): star_hub(n, extra)
 CFG_KW = dict(alpha=0.05, chunk=512)   # the main path's pdGRASS config
 
 
@@ -202,6 +226,25 @@ def recovery_route(rec, rounds, **force):
         yield
     finally:
         rec.recover_rounds = engine
+
+
+@contextlib.contextmanager
+def record_coarse(hier_mod, name, out):
+    """Within the block, every call of ``hier_mod.<name>`` (a contraction:
+    ``device_contract`` or ``sharded_contract``) appends the coarse graph
+    it returns, the next level's input graph, to ``out``."""
+    contract = getattr(hier_mod, name)
+
+    def run(*args, **kw):
+        agg, coarse = contract(*args, **kw)
+        out.append(coarse)
+        return agg, coarse
+
+    setattr(hier_mod, name, run)
+    try:
+        yield
+    finally:
+        setattr(hier_mod, name, contract)
 
 
 def traced_build(torch, g, build_hierarchy, rec, get_tracer, kops,
@@ -392,14 +435,16 @@ def k4_path(np, torch, g, kops):
     """The K4 path: the round engine's kernel route against its chunked
     route at full size, and exhaustively (no target) on mesh2d(128, 128)
     against the chunked route and the serial oracle.  Returns every K4
-    launch's inputs of the full-size kernel run."""
+    launch's inputs of the full-size kernel run, and the level-0
+    ``Prepared`` (phase 6e recovers it over a mesh)."""
     from repro_torch.core import recovery as rec
     from repro_torch.core.graph import mesh2d
     from repro_torch.pipeline import Pipeline, pdgrass_config
 
     cfg = pdgrass_config(alpha=0.05, chunk=512)
     t0 = time.perf_counter()
-    prob = Pipeline(cfg).prepare(g, device="cuda").problem
+    prep = Pipeline(cfg).prepare(g, device="cuda")
+    prob = prep.problem
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     target = int(np.ceil(0.05 * g.n))
@@ -463,7 +508,7 @@ def k4_path(np, torch, g, kops):
             and np.array_equal(s_k.cpu().numpy(), s_s)):
         fail("mesh2d(128, 128): the K4 route, the chunked route and "
              "recover_serial disagree")
-    return launches_args
+    return launches_args, prep
 
 
 def service_path(np, torch, g, b, kops, disk):
@@ -852,6 +897,212 @@ def spectral_path(np, torch, g, svc, h, kops):
              "CPU")
 
 
+def recovery_engines(torch, prep, mesh, rec, kops, label):
+    """``recover_rounds`` without a target against ``recover_mixed`` over
+    ``mesh`` on one problem: statuses bitwise equal, and K4's launches over
+    the mixed run equal to its rounds summed over the shards (the outer
+    engine's one launch a round on each shard, the inner engine's one a
+    round on every shard).  Returns (K4 launches, inner rounds, collective
+    bytes, giants)."""
+    from repro_torch.core.distributed import partition_subtasks, recover_mixed
+    from repro_torch.obs import get_metrics
+
+    n_sh = mesh.size
+    metrics = get_metrics()
+    t0 = time.perf_counter()
+    st_r, stats = rec.recover_rounds(prep.problem, stop_at_target=False,
+                                     chunk=512)
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    before = metrics.snapshot()
+    shard_rounds = []
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    with recovery_route(rec, shard_rounds):
+        st_m = recover_mixed(prep, mesh, chunk=512)
+    torch.cuda.synchronize()
+    mixed_s = time.perf_counter() - t0
+    launches = kops.launch_counts()["similarity_mark"]
+    after = metrics.snapshot()
+    inner, nbytes = (after.get(k, 0) - before.get(k, 0)
+                     for k in ("dist.inner_rounds", "dist.collective_bytes"))
+    _, giants, _ = partition_subtasks(prep.subtask_sizes, n_sh)
+    print(f"{label}: m={prep.problem.m}, {prep.n_subtasks} subtasks (largest "
+          f"{int(prep.subtask_sizes.max())}), giants {giants}; "
+          f"recover_rounds {rounds_s:.3f} s ({stats.rounds} rounds); "
+          f"recover_mixed over {n_sh} shards {mixed_s:.3f} s (outer rounds "
+          f"a shard {shard_rounds}, inner rounds {inner}, "
+          f"dist.collective_bytes {nbytes}); K4 launches {launches}",
+          flush=True)
+    if not torch.equal(st_m, st_r):
+        fail(f"{label}: recover_mixed's status differs from recover_rounds'")
+    if launches <= 0 or launches != sum(shard_rounds) + n_sh * inner:
+        fail(f"{label}: K4 launched {launches} times over outer rounds "
+             f"{shard_rounds} and {inner} inner rounds on {n_sh} shards")
+    return launches, inner, nbytes, giants
+
+
+def same_graph(np, a, b) -> bool:
+    return (a.n == b.n and all(np.array_equal(x, y) for x, y in (
+        (a.src, b.src), (a.dst, b.dst), (a.weight, b.weight))))
+
+
+def distributed_path(np, torch, g, hier, coarse_dev, idx, val, b_dev,
+                     iters_single, prep0, kops, rec, hier_mod):
+    """Phase 6e, the distributed planes over an 8-shard mesh on the card:
+    (a) the outer engine on the level-0 problem, (b) the inner engine on a
+    star hub's giant subtask, (c) the sharded contraction, (d) the sharded
+    solve at full width, (e) fused against plain, (f) the service over the
+    mesh.  Returns (K1 launches of (d)'s solve, K4 launches of (a) and
+    (b))."""
+    from repro_torch.core.graph import mesh2d, star_hub
+    from repro_torch.launch import make_mesh
+    from repro_torch.obs import get_tracer
+    from repro_torch.pipeline import Pipeline, pdgrass_config
+    from repro_torch.solver import (SolverService, build_hierarchy,
+                                    ell_laplacian, make_solver)
+
+    mesh = make_mesh((SHARDS,), ("data",), device="cuda")
+
+    # (a) the outer engine at full size
+    k4_a, _, _, _ = recovery_engines(torch, prep0, mesh, rec, kops,
+                                     "(a) level-0 problem")
+
+    # (b) the inner engine: one giant subtask holds the star's extra edges
+    t0 = time.perf_counter()
+    star = star_hub(*STAR, seed=5)
+    prep = Pipeline(pdgrass_config(**CFG_KW)).prepare(star, device="cuda")
+    print(f"(b) star_hub({STAR[0]}, extra={STAR[1]}, seed=5): n={star.n} "
+          f"m={star.m}, prepared in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    k4_b, inner, _, giants = recovery_engines(torch, prep, mesh, rec, kops,
+                                              "(b) star hub")
+    if not giants or inner <= 0:
+        fail("(b): no giant subtask went through the inner engine")
+    del prep
+
+    # (c) the sharded contraction against phase 3's device contraction
+    coarse_sh = []
+    tracer = get_tracer()
+    tracer.enable()
+    tracer.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_coarse(hier_mod, "sharded_contract", coarse_sh):
+        hier_sh = build_hierarchy(g, alpha=0.05, chunk=512,
+                                  contraction="sharded", mesh=mesh,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tracer.disable()
+    contract_s = sum(ev["dur_ns"] for ev in tracer.events()
+                     if ev["name"] == "hierarchy.contract") / 1e9
+    print(f"(c) sharded build: {build_s:.3f} s, hierarchy.contract "
+          f"{contract_s:.4f} s (host span); level sizes "
+          f"{hier_sh.level_sizes}", flush=True)
+    first_parted = None
+    for lvl, (ld, ls) in enumerate(zip(hier.levels, hier_sh.levels)):
+        same_in = lvl == 0 or same_graph(np, coarse_dev[lvl - 1],
+                                         coarse_sh[lvl - 1])
+        cd, cs = coarse_dev[lvl], coarse_sh[lvl]
+        parting = (float(np.max(np.abs(cd.weight - cs.weight)
+                                / np.abs(cd.weight)))
+                   if cd.n == cs.n and np.array_equal(cd.src, cs.src)
+                   and np.array_equal(cd.dst, cs.dst) else float("nan"))
+        print(f"(c) level {lvl}: input graph equal {same_in}, agg equal "
+              f"{torch.equal(ld.agg, ls.agg)}, largest coarse-weight "
+              f"parting (relative) {parting:.3e}", flush=True)
+        if same_in and not (ld.n_coarse == ls.n_coarse
+                            and torch.equal(ld.agg, ls.agg)):
+            fail(f"(c) level {lvl}: the sharded contraction's agg differs "
+                 f"from the device contraction's on an equal input graph")
+        if not same_in and first_parted is None:
+            first_parted = lvl
+    if first_parted is None and hier_sh.level_sizes != hier.level_sizes:
+        fail(f"(c) level sizes {hier_sh.level_sizes} != "
+             f"{hier.level_sizes} on equal input graphs")
+    print(f"(c) first level whose input graph parted: {first_parted}",
+          flush=True)
+    del hier_sh, coarse_sh
+
+    # (d) the sharded solve at full width on phase 3's hierarchy
+    t0 = time.perf_counter()
+    solver = make_solver(idx, val, hier, matvec_impl="fused", mesh=mesh,
+                         device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    res = solver(b_dev, tol=TOL, maxiter=MAXITER)
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    k1 = kops.launch_counts()["spmv_ell_batched"]
+    iters = res.iters.tolist()
+    relres = res.relres.tolist()
+    print(f"(d) sharded solve, {SHARDS} shards: setup {setup_s:.3f} s, solve "
+          f"{solve_ms:.2f} ms, iters {iters} (single device {iters_single}, "
+          f"difference {[a - c for a, c in zip(iters, iters_single)]}), true "
+          f"relres {[f'{x:.3e}' for x in relres]}; K1 launches {k1} "
+          f"({k1 / max(1, max(iters)):.1f} a trip)", flush=True)
+    if not all(x <= TOL for x in relres) or k1 <= 0:
+        fail(f"(d) the sharded solve: relres {relres}, K1 launches {k1}")
+    if not torch.isfinite(res.x).all():
+        fail("(d) the sharded solve's x is not finite")
+    trip_profile(torch, solver, b_dev, trips=10, label="(d) sharded solve")
+    del solver, res
+
+    # (e) fused against plain on mesh2d(256, 256): +-0, x bitwise
+    small = mesh2d(256, 256, seed=0)
+    h_small = build_hierarchy(small, alpha=0.05, chunk=512, device="cuda")
+    s_idx, s_val = ell_laplacian(small, device="cuda")
+    bs = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (small.n, 4)).astype(np.float32), device="cuda")
+    out = {}
+    for impl in ("ref", "fused"):
+        solve = make_solver(s_idx, s_val, h_small, matvec_impl=impl,
+                            mesh=mesh, device="cuda")
+        t0 = time.perf_counter()
+        out[impl] = solve(bs, tol=TOL, maxiter=MAXITER)
+        torch.cuda.synchronize()
+        print(f"(e) mesh2d(256, 256), {impl}: "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms, iters "
+              f"{out[impl].iters.tolist()}", flush=True)
+    lone = solve(bs[:, 2:3].contiguous(), tol=TOL, maxiter=MAXITER)
+    if not (torch.equal(out["fused"].iters, out["ref"].iters)
+            and torch.equal(out["fused"].x, out["ref"].x)):
+        fail("(e) the sharded fused solve is not bitwise equal to the plain")
+    if not (torch.equal(lone.x[:, 0], out["fused"].x[:, 2])
+            and int(lone.iters[0]) == int(out["fused"].iters[2])):
+        fail("(e) a lone column differs from its column in the batch")
+    print("(e) fused and plain: +-0 iterations, x bitwise; a lone column "
+          "equals its column in the batch", flush=True)
+
+    # (f) the service over the mesh: a miss, then a mem hit
+    svc = SolverService(pipeline=pdgrass_config(**CFG_KW), mesh=mesh,
+                        device="cuda")
+    h = svc.register(small)
+    key_single = SolverService(pipeline=svc.pipeline, device="cuda")._key(
+        h, svc.pipeline)
+    b2 = bs[:, :2].cpu().numpy()
+    t0 = time.perf_counter()
+    r1 = svc.solve(h, b2, tol=TOL, maxiter=MAXITER)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r2 = svc.solve(h, b2, tol=TOL, maxiter=MAXITER)
+    warm_s = time.perf_counter() - t0
+    desc = svc.stats()["mesh"]["descriptor"]
+    print(f"(f) service over the mesh, mesh2d(256, 256): {r1.cache} "
+          f"{cold_s:.3f} s, {r2.cache} {warm_s:.3f} s, iters "
+          f"{[int(i) for i in r2.iters]}, descriptor {desc}", flush=True)
+    if (r1.cache, r2.cache) != ("miss", "mem") or not r2.converged:
+        fail(f"(f) caches {r1.cache}, {r2.cache}; converged {r2.converged}")
+    if desc != ("mesh", "data", SHARDS) or \
+            svc._key(h, svc.pipeline) == key_single:
+        fail(f"(f) descriptor {desc}, or the key equals the single-device "
+             f"service's")
+    return k1, k4_a + k4_b
+
+
 def ell_to_csr(torch, idx, val):
     """The ELL operator as a valid CSR (sorted, unique columns per row; the
     ELL padding entries are zeros on the diagonal and merge into it)."""
@@ -1126,9 +1377,53 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
     return records
 
 
-def trip_profile(torch, solver, b_dev, trips=30):
-    """The fused solve's wall and device time a PCG trip over ``trips``
-    trips (maxiter = trips, so every column runs them all): wall from an
+def k1_shard_record(torch, vf, ref, idx, val, launches):
+    """K1 at a shard's shape on the main path's sharded plane: shard 0's
+    slab of the top operator (``n_loc`` rows of the 8-shard split), on
+    ``x_ext = [x_loc; x[halo]]`` (``n_loc + H`` rows, H the largest halo
+    of the 8, k = 8): error against the plain version, device ms beside the
+    plain version's, the bound and ``torch.sparse.mm`` on a CSR copy of
+    the shard's local operator.  ``launches`` is K1's count over phase
+    6e's sharded solve."""
+    from repro_torch.solver.sharded import shard_ell_slabs
+
+    slab, meta = shard_ell_slabs(idx, val, SHARDS)
+    halo = slab.halo.view(SHARDS, meta.halo).long()
+    s = 0
+    rows = slice(s * meta.n_loc, (s + 1) * meta.n_loc)
+    s_idx, s_val = slab.idx[rows], slab.val[rows]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((meta.n_pad, K), generator=gen, device="cuda")
+    x_ext = torch.cat([x[rows], x[halo[s]]])
+    y_k = vf.spmv_ell_batched(s_idx, s_val, x_ext)
+    y_r = ref.spmv_ell_batched_ref(s_idx, s_val, x_ext)
+    if not torch.equal(y_k, y_r):
+        fail("K1 is not bitwise equal to its plain version at the shard's "
+             "shape")
+    n, L = s_idx.shape
+    nx = x_ext.shape[0]
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        A = torch.sparse_coo_tensor(
+            torch.stack([torch.arange(n, device="cuda").repeat_interleave(L),
+                         s_idx.flatten().long()]), s_val.flatten(), (n, nx),
+            check_invariants=True).coalesce().to_sparse_csr()
+    bms, by = bound_ms(n * L * 8 + nx * K * 4 + n * K * 4, 2.0 * n * L * K)
+    row = dict(n_loc=n, halo=meta.halo, nx=nx, k=K, L=L, launches=launches,
+               max_abs_err=float((y_k - y_r).abs().max()),
+               ms=time_ms(torch, lambda: vf.spmv_ell_batched(s_idx, s_val,
+                                                             x_ext)),
+               plain_ms=time_ms(torch, lambda: ref.spmv_ell_batched_ref(
+                   s_idx, s_val, x_ext)),
+               bound_ms=bms, bound_by=by,
+               library_ms=time_ms(torch, lambda: torch.sparse.mm(A, x_ext)))
+    print(f"K1 at the shard's shape: {json.dumps(row)}", flush=True)
+    return row
+
+
+def trip_profile(torch, solver, b_dev, trips=30, label="fused solve"):
+    """A solve's wall and device time a PCG trip over ``trips`` trips
+    (maxiter = trips, so every column runs them all): wall from an
     unprofiled run, device time and kernel split from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1148,7 +1443,7 @@ def trip_profile(torch, solver, b_dev, trips=30):
            if e.device_type == torch.autograd.DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     if not evs:
-        fail("the profiler recorded no device time over the fused solve")
+        fail(f"the profiler recorded no device time over the {label}")
     names = {}
     for e in evs:
         names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -1156,7 +1451,7 @@ def trip_profile(torch, solver, b_dev, trips=30):
     k3 = sum(us for name, us in names.items()
              if "restrict_residual" in name) / 1e3 / trips
     top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
-    print(f"fused solve, {trips} trips: wall {wall_ms:.3f} ms a trip "
+    print(f"{label}, {trips} trips: wall {wall_ms:.3f} ms a trip "
           f"(unprofiled), device busy {busy_ms:.4f} ms a trip (share "
           f"{busy_ms / wall_ms:.3f}), of it K3 {k3:.4f} ms; "
           f"{len(evs) / trips:.0f} device ops a trip; top: " + "; ".join(
@@ -1461,6 +1756,7 @@ def main() -> int:
         from repro_torch.obs import get_tracer
         from repro_torch.solver import (build_hierarchy, ell_laplacian,
                                         make_solver)
+        from repro_torch.solver import hierarchy as hier_mod
     except ImportError as exc:
         print(f"FAIL: the repro_torch package is not beside this script "
               f"({exc})", file=sys.stderr)
@@ -1515,11 +1811,12 @@ def main() -> int:
           f"({time.perf_counter() - t0:.2f} s on the host)", flush=True)
     b = np.random.default_rng(1).standard_normal((g.n, K)).astype(np.float32)
     # the main path, untraced: launch counts are read over exactly this run
-    rounds = []
+    rounds, coarse_dev = [], []   # coarse_dev: each level's coarse graph
     kops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with recovery_route(rec, rounds):
+    with recovery_route(rec, rounds), \
+            record_coarse(hier_mod, "device_contract", coarse_dev):
         hier = build_hierarchy(g, alpha=0.05, chunk=512,
                                contraction="device", device="cuda")
     torch.cuda.synchronize()
@@ -1609,7 +1906,7 @@ def main() -> int:
     phase_done("main_path")
 
     # ---- phase 5: the K4 path ------------------------------------------
-    k4_runs = k4_path(np, torch, g, kops)
+    k4_runs, prep0 = k4_path(np, torch, g, kops)
     phase_done("k4_path")
 
     # ---- phase 6: the service path, and its K5 route -------------------
@@ -1632,6 +1929,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("spectral_path")
 
+    # ---- phase 6e: the distributed planes over an 8-shard mesh ----------
+    k1_sharded, k4_sharded = distributed_path(
+        np, torch, g, hier, coarse_dev, idx, val, b_dev, iters, prep0, kops,
+        rec, hier_mod)
+    del prep0, coarse_dev
+    torch.cuda.empty_cache()
+    phase_done("distributed_path")
+
     # ---- phase 7: the LM serving path (K6) -------------------------------
     k6_launches, k6_args = lm_path(np, torch, kops)
     phase_done("lm_path")
@@ -1641,6 +1946,11 @@ def main() -> int:
     trip_profile(torch, solver, b_dev)
     records += k45_records(np, torch, kops, ref, k4_runs, main_k4_runs,
                            counts["similarity_mark"], idx, val, k5_launches)
+    # the sharded paths of phase 6e: K1 at a shard's shape, K4's launches
+    by_name = {r["name"]: r for r in records}
+    by_name["spmv_ell_batched"]["sharded"] = k1_shard_record(
+        torch, vf, ref, idx, val, k1_sharded)
+    by_name["similarity_mark"]["sharded"] = {"launches": k4_sharded}
     records.append(k6_record(torch, kops, ref, k6_args, k6_launches,
                              max_sm_clock_mhz()))
     phase_done("kernel_timing")

@@ -1,7 +1,6 @@
 """Flat-tensor device primitives for label/propose/accept graph work.
 
-The port of ``repro.core.graph_ops`` (single-device primitives only; the
-mesh-sharded variants wait for the distributed slice):
+The port of ``repro.core.graph_ops``:
 
   * :func:`segment_argmax`          — per-segment argmax under the
     (value, min element id) total order.
@@ -12,6 +11,21 @@ mesh-sharded variants wait for the distributed slice):
   * :func:`pointer_jump`            — parent forest -> roots by doubling.
   * :func:`compact_labels`          — order-preserving dense relabel.
   * :func:`coalesce_edges`          — relabel + merge an edge list.
+
+Mesh-sharded variants sit beside them, with the edges row-sharded over a
+:class:`repro_torch.launch.Mesh`: a sharded argument is stacked, shard
+``s`` holding ``x[s]`` (``[P, ...]``), and results are replicated.  Each
+shard reduces its own elements, then the collectives of
+:mod:`repro_torch.core.collectives` combine the shards under the same
+total orders, so each is bit-identical to its single-device counterpart:
+
+  * :func:`sharded_segment_argmax` — a ``pmax`` settles the best value, a
+    ``pmin`` over the global element ids that attain it the winner.
+  * :func:`sharded_matching`       — :func:`propose_accept_matching` with
+    the proposal sweep sharded; accepted writes merge by ``pmax``.
+  * :func:`sharded_coalesce_edges` — a local coalesce per shard, an
+    ``all_gather``, a final merge (coarse weights equal up to the order
+    of their float sums).
 
 Two helpers stand in for JAX idioms that PyTorch lacks:
 
@@ -33,6 +47,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.core.collectives import all_gather, pmax, pmin, psum
 
 INT32_MAX = torch.iinfo(torch.int32).max
 _JUMP_CHECK_EVERY = 4   # doublings between host tests in pointer_jump
@@ -218,3 +234,86 @@ def coalesce_edges(src: torch.Tensor, dst: torch.Tensor,
     csrc = scatter_drop(zeros, uid, lo_s, first)
     cdst = scatter_drop(zeros, uid, hi_s, first)
     return csrc, cdst, cw, first.sum()
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded variants: [P, ...] stacked shards in, replicated results out
+# ---------------------------------------------------------------------------
+
+def sharded_segment_argmax(values: torch.Tensor, segment_ids: torch.Tensor,
+                           num_segments: int, *, element_ids: torch.Tensor,
+                           sentinel: Optional[int] = None,
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`segment_argmax` with the elements sharded (``[P, E]`` each).
+
+    ``element_ids`` must carry global ids, unique across shards: local ids
+    would collide between shards and corrupt the tie-break."""
+    big = torch.iinfo(element_ids.dtype).max
+    local = [segment_argmax(values[s], segment_ids[s], num_segments,
+                            element_ids=element_ids[s], sentinel=big)
+             for s in range(values.shape[0])]
+    pick_l = torch.stack([p for p, _ in local])
+    best_l = torch.stack([b for _, b in local])
+    best = pmax(best_l)
+    cand = torch.where((best_l == best) & (best > -float("inf")), pick_l,
+                       big)
+    pick = pmin(cand)
+    if sentinel is None:
+        sentinel = big
+    return torch.where(pick == big, torch.full_like(pick, sentinel),
+                       pick), best
+
+
+def sharded_matching(n: int, src: torch.Tensor, dst: torch.Tensor,
+                     weight: torch.Tensor, edge_ids: torch.Tensor
+                     ) -> torch.Tensor:
+    """:func:`propose_accept_matching` with the edge list sharded
+    (``[P, m_loc]`` each); returns the replicated ``[n]`` ``mate``.
+
+    ``edge_ids`` holds every slot's global edge id, ``-1`` on padding.
+    Accepted edges are vertex-disjoint over the whole mesh, so at most one
+    shard writes a vertex and a ``pmax`` merges the writes.  One host sync
+    a round, on the ``psum`` of the alive edges."""
+    dev = src.device
+    valid = edge_ids >= 0
+    heads = torch.cat([src, dst], dim=1)
+    eids2 = torch.cat([edge_ids, edge_ids], dim=1)
+    w2 = torch.cat([weight, weight], dim=1)
+    none = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    mate = none
+    neg_inf = torch.tensor(-float("inf"), dtype=weight.dtype, device=dev)
+    while True:
+        free = mate < 0
+        alive = valid & free[src] & free[dst]
+        vals = torch.where(torch.cat([alive, alive], dim=1), w2, neg_inf)
+        prop, _ = sharded_segment_argmax(vals, heads, n, element_ids=eids2,
+                                         sentinel=INT32_MAX)
+        accept = alive & (prop[src] == edge_ids) & (prop[dst] == edge_ids)
+        upd = torch.stack([
+            scatter_drop(scatter_drop(none, src[s], dst[s], accept[s]),
+                         dst[s], src[s], accept[s])
+            for s in range(src.shape[0])])
+        upd = pmax(upd)
+        mate = torch.where(upd >= 0, upd, mate)
+        if not bool(psum(alive.sum(dim=1)) > 0):     # host sync
+            return mate
+
+
+def sharded_coalesce_edges(src: torch.Tensor, dst: torch.Tensor,
+                           weight: torch.Tensor, labels: torch.Tensor,
+                           num_labels: int):
+    """:func:`coalesce_edges` with the edge list sharded (``[P, m_loc]``).
+
+    Two phases: every shard coalesces its own slice (parallel duplicates
+    within a shard merge there), then one ``all_gather`` of the merged
+    lists feeds a final replicated merge.  Padding slots (``src == dst``)
+    drop in phase one.  The output has the layout of
+    :func:`coalesce_edges` over the gathered length ``P * m_loc``."""
+    local = [coalesce_edges(src[s], dst[s], weight[s], labels, num_labels)
+             for s in range(src.shape[0])]
+    g_src, g_dst, g_w = (all_gather(torch.stack([part[i] for part in local]),
+                                    tiled=True) for i in range(3))
+    # phase two relabels through the identity: entries are already coarse
+    # ids, and phase one's empty slots are (0, 0), which drop again
+    ident = torch.arange(num_labels, dtype=torch.int32, device=src.device)
+    return coalesce_edges(g_src, g_dst, g_w, ident, num_labels)

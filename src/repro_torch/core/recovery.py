@@ -214,14 +214,14 @@ def recover_rounds(prob: RecoveryProblem, target: int = 2**31 - 1, *,
         raise ValueError(f"problem rows {m} are not a multiple of chunk "
                          f"{chunk}")
 
-    # Loop-invariant tensors: in-segment base offsets and chunk ranges.
+    # Loop-invariant tensors: each row's segment start and chunk ranges.
+    # The start is the last run start at or before the row, so subtask ids
+    # may be any ints (an outer shard keeps its subtasks' global ids).
     arange_m = torch.arange(m, dtype=torch.int32, device=dev)
-    seg_ids = torch.where(is_edge, seg, 0).long()
     first_of_seg = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                              seg[1:] != seg[:-1]]) & is_edge
-    seg_first = scatter_drop(torch.zeros(m, dtype=torch.int64, device=dev),
-                             seg_ids, arange_m.long(), first_of_seg)
-    seg_row0 = seg_first[seg_ids]              # first row of each row's seg
+                              seg[1:] != seg[:-1]])
+    seg_row0 = torch.cummax(torch.where(first_of_seg, arange_m.long(), 0),
+                            0).values          # first row of each row's seg
     chunks = seg.view(-1, chunk)
     chunk_lo, chunk_hi = chunks[:, 0], chunks.max(dim=1).values
     chunk_rows = torch.arange(chunk, device=dev)

@@ -9,14 +9,14 @@ Three registries, looked up by the ``kind`` strings in
   * ``RECOVERY_ENGINES`` — ``(prep, target, PipelineConfig, **ctx) ->
                              (recovered_mask [graph.m] bool, stats dict)``
 
-Ported: ``low_stretch``/``boruvka``, ``w_times_r``/``r``/``er_sample``/
-``er_exact`` and ``rounds``/``serial``/``multipass``.  ``distributed`` is
-registered, so every config of the reference validates, but raises
-:class:`NotImplementedError` when run.
+Every stage of the reference is ported: ``low_stretch``/``boruvka``,
+``w_times_r``/``r``/``er_sample``/``er_exact`` and ``rounds``/``serial``/
+``distributed``/``multipass``.
 
 ``ctx`` carries runtime-only objects that don't belong in a serializable
 config: for score stages, the host ``graph``, the tree membership mask,
-and the off-tree endpoints ``u``/``v`` that ``er_exact`` solves against.
+and the off-tree endpoints ``u``/``v`` that ``er_exact`` solves against;
+for the ``distributed`` engine, the ``mesh``.
 """
 from __future__ import annotations
 
@@ -38,13 +38,6 @@ def register(registry: dict, name: str):
         registry[name] = fn
         return fn
     return deco
-
-
-def _not_ported(registry: dict, name: str):
-    def stage(*args, **kwargs):
-        raise NotImplementedError(
-            f"stage {name!r} is not yet ported to repro_torch")
-    registry[name] = stage
 
 
 # -- tree stages (paper step 1) ----------------------------------------------
@@ -196,7 +189,24 @@ def engine_serial(prep, target, cfg: PipelineConfig, **ctx):
     return mask_from_status(prep, status, target), {"rounds": -1}
 
 
-_not_ported(RECOVERY_ENGINES, "distributed")
+@register(RECOVERY_ENGINES, "distributed")
+def engine_distributed(prep, target, cfg: PipelineConfig, mesh=None, **ctx):
+    """The mixed outer/inner mesh engine of
+    :mod:`repro_torch.core.distributed`.
+
+    ``mesh`` comes through the runtime context (``Pipeline.run(...,
+    mesh=m)``); without one, a 1-shard mesh on the problem's device."""
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.launch.mesh import make_mesh
+
+    r = cfg.recovery
+    if mesh is None:
+        mesh = make_mesh((1,), (r.axis,), device=prep.problem.seg.device)
+    status = dist_mod.recover_mixed(
+        prep, mesh, axis=r.axis, block_size=r.block_size,
+        max_candidates=r.max_candidates, chunk=cfg.chunk, cutoff=r.cutoff)
+    return mask_from_status(prep, status, target), {
+        "rounds": -1, "n_shards": int(mesh.shape[r.axis])}
 
 
 @register(RECOVERY_ENGINES, "multipass")

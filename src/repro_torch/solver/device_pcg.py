@@ -129,13 +129,35 @@ def make_chebyshev_smoother(matvec: Callable, diag, rho: float,
     Returns ``smooth(r, z=None)`` (``None`` = zero initial iterate)."""
     theta, delta, sigma = cheby_coeffs(rho)
     theta_t = torch.full((), theta, dtype=torch.float32, device=diag.device)
-    inv_d = (1.0 / diag)[:, None]
+    inv_d = (1.0 / diag)[..., None]
 
     def smooth(r, z=None):
         return cheby_recurrence(matvec, inv_d, r, z, degree=degree,
                                 theta=theta_t, delta=delta, sigma=sigma)
 
     return smooth
+
+
+def coarse_solve(r, chol: Optional[torch.Tensor]):
+    """The coarsest level's solve ``[nc, k] -> [nc, k]``, mean zero: the
+    grounded Laplacian's Cholesky factor ``chol`` (``None`` for a single
+    vertex) on rows 1.. with row 0 pinned to zero, then centered.
+
+    One batched solve per column, so a column's result does not depend on
+    its neighbours (a multi-column triangular solve blocks over the
+    columns).  On a CUDA device PyTorch solves a batch of one with
+    cuSOLVER and a larger batch with MAGMA, which round differently: a lone
+    column rides with a zero one, so that every width takes the batched
+    route."""
+    if chol is None:
+        return torch.zeros_like(r)
+    k = r.shape[1]
+    rhs = r[1:].t().unsqueeze(-1)
+    if k == 1:
+        rhs = torch.cat([rhs, torch.zeros_like(rhs)])
+    y = torch.cholesky_solve(rhs, chol, upper=False)
+    y = y[:k].squeeze(-1).t()
+    return _center(torch.cat([torch.zeros_like(r[:1]), y]))
 
 
 def make_vcycle(hier: Hierarchy, *, degree: int = 2,
@@ -167,27 +189,10 @@ def make_vcycle(hier: Hierarchy, *, degree: int = 2,
                      for mv, lev in zip(matvecs, hier.levels)]
     aggs = [lev.agg.long() for lev in hier.levels]
 
-    def coarse_solve(r):
-        with named_scope("vcycle.coarse"):
-            if hier.coarse_chol is None:  # single-vertex coarse graph
-                return torch.zeros_like(r)
-            # one batched solve per column, so a column's result does not
-            # depend on its neighbours (a multi-column triangular solve
-            # blocks over the columns).  On a CUDA device PyTorch solves a
-            # batch of one with cuSOLVER and a larger batch with MAGMA,
-            # which round differently: a lone column rides with a zero
-            # one, so that every width takes the batched route
-            k = r.shape[1]
-            rhs = r[1:].t().unsqueeze(-1)
-            if k == 1:
-                rhs = torch.cat([rhs, torch.zeros_like(rhs)])
-            y = torch.cholesky_solve(rhs, hier.coarse_chol, upper=False)
-            y = y[:k].squeeze(-1).t()
-            return _center(torch.cat([torch.zeros_like(r[:1]), y]))
-
     def cycle(l: int, r):
         if l == len(hier.levels):
-            return coarse_solve(r)
+            with named_scope("vcycle.coarse"):
+                return coarse_solve(r, hier.coarse_chol)
         smooth = smoothers[l]
         with named_scope(f"vcycle.L{l}.down"):
             z = smooth(r)                                   # pre-smooth
@@ -237,8 +242,9 @@ def _pcg_loop(matvec: Callable, b, msolve: Callable, tol, maxiter,
     ``colsum(v) -> [k]`` sums a ``[rows, k]`` tensor over its rows and
     ``center`` projects the final ``x`` out of the operator's nullspace:
     the Laplacian's constants by default, the identity for a nonsingular
-    operator (the harmonic Dirichlet solve)."""
-    k = b.shape[1]
+    operator (the harmonic Dirichlet solve).  ``b`` may carry leading
+    axes (the sharded plane's ``[P, n_loc, k]``); columns are its last."""
+    k = b.shape[-1]
     dev = b.device
     bnorm = torch.sqrt(colsum(b * b))
     bn = torch.clamp(bnorm, min=torch.finfo(b.dtype).tiny)
@@ -298,15 +304,18 @@ def make_solver(idx, val, hierarchy: Optional[Hierarchy] = None,
 
     ``precond``: ``"hierarchy"`` (V-cycle over ``hierarchy``), ``"jacobi"``
     or ``"none"``.  ``idx``/``val`` move to ``device``; the hierarchy must
-    already live there.  ``mesh=`` (the sharded plane) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_solver(mesh=...) — the sharded solve plane — is not ported "
-            "to repro_torch yet")
-    del shard_axis
+    already live there.  With a ``mesh`` the solve runs on the sharded
+    plane (:func:`repro_torch.solver.sharded.make_sharded_solver`), rows
+    sharded over ``shard_axis``."""
     device = torch.device(device)
     if matvec_impl is None:
         matvec_impl = default_matvec_impl(device)
+    if mesh is not None:
+        from repro_torch.solver.sharded import make_sharded_solver
+
+        return make_sharded_solver(idx, val, hierarchy, precond, mesh=mesh,
+                                   shard_axis=shard_axis,
+                                   matvec_impl=matvec_impl, device=device)
     idx, val = idx.to(device), val.to(device)
     matvec = make_matvec(idx, val, matvec_impl)
     if precond == "hierarchy":

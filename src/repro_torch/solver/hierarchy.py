@@ -19,7 +19,10 @@ Contraction modes (``build_hierarchy(contraction=...)``):
   * ``"host"`` — the sequential greedy matching over numpy arrays, the
     parity oracle.  Both follow the strict (weight, -edge id) order and
     give the identical clustering.
-  * ``"sharded"`` — not ported yet (distributed slice).
+  * ``"sharded"`` — the propose/accept rounds with the edge list sharded
+    over a :class:`repro_torch.launch.Mesh` (:func:`sharded_contract`):
+    the same clustering; coarse weights equal up to the order of their
+    float sums (each shard sums its own parallel edges first).
 """
 from __future__ import annotations
 
@@ -31,9 +34,13 @@ import torch
 
 from repro_torch.core.device_graph import DeviceGraph
 from repro_torch.core.graph import Graph, build_graph
+from repro_torch.core.collectives import pmax
 from repro_torch.core.graph_ops import (coalesce_edges,
                                         propose_accept_matching,
-                                        segment_argmax)
+                                        scatter_drop, segment_argmax,
+                                        sharded_coalesce_edges,
+                                        sharded_matching,
+                                        sharded_segment_argmax)
 from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.obs.device import trace_annotation
 from repro_torch.pipeline import Pipeline, PipelineConfig, pdgrass_config
@@ -194,6 +201,79 @@ def device_contract(dg: DeviceGraph) -> Tuple[torch.Tensor, Graph]:
     return agg, coarse
 
 
+def _sharded_contract_arrays(n: int, m_total: int, src, dst, weight, eids):
+    """:func:`_device_contract_arrays` with the edges sharded ``[P, m_loc]``:
+    matching, clustering and a two-phase coalesce.
+
+    ``eids`` holds global edge ids, -1 on padding; padding slots carry
+    ``src == dst == 0``, so the coalesce drops them.  The clustering is the
+    replicated ``[n]`` mirror of the single-device one, with the same pair
+    numbering and slot order for the absorption tie-break, so it gives the
+    identical ``agg``."""
+    dev = src.device
+    verts = torch.arange(n, dtype=torch.int32, device=dev)
+    valid = eids >= 0
+    mate = sharded_matching(n, src, dst, weight, eids)
+    matched = mate >= 0
+    is_lo = matched & (verts < mate)
+    pid = torch.cumsum(is_lo.to(torch.int32), 0, dtype=torch.int32) - 1
+    pair_of = torch.where(is_lo, pid,
+                          pid[torch.where(matched, mate, 0).long()])
+    pair_of = torch.where(matched, pair_of, -1)
+    # Unmatched vertices absorb into their heaviest neighbour's cluster.
+    # Global slot ids reproduce the single-device [src-side | dst-side]
+    # layout (edge e's slots are e and m_total + e), so the pmin tie-break
+    # matches the element-index tie-break of segment_argmax.
+    heads = torch.cat([src, dst], dim=1)
+    tails = torch.cat([dst, src], dim=1)
+    slots = torch.cat([eids, torch.where(valid, eids + m_total, -1)], dim=1)
+    w2 = torch.where(torch.cat([valid, valid], dim=1),
+                     torch.cat([weight, weight], dim=1), -float("inf"))
+    big = torch.iinfo(torch.int32).max
+    pick, _ = sharded_segment_argmax(w2, heads, n, element_ids=slots,
+                                     sentinel=big)
+    # the shard that owns the winning slot writes its tail; pmax merges
+    won = (slots >= 0) & (pick[heads] == slots)
+    none = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    tgt = pmax(torch.stack([scatter_drop(none, heads[s], tails[s], won[s])
+                            for s in range(src.shape[0])]))
+    agg = torch.where(matched, pair_of,
+                      pair_of[torch.where(tgt >= 0, tgt, 0).long()])
+    csrc, cdst, cw, m_coarse = sharded_coalesce_edges(src, dst, weight, agg,
+                                                      n)
+    return mate, agg, is_lo.sum(), csrc, cdst, cw, m_coarse
+
+
+def sharded_contract(dg: DeviceGraph, mesh, axis: str = "data"
+                     ) -> Tuple[torch.Tensor, Graph]:
+    """Mesh-sharded counterpart of :func:`device_contract`: the
+    propose/accept rounds with the edge list sharded over ``axis``.
+
+    Returns ``(agg [n] int32 on the device, coarse host Graph)``: the
+    clustering of the device path, with coarse weights equal up to the
+    order of their float sums."""
+    mesh.check_device(dg.device, "the graph")
+    n_sh = int(mesh.shape[axis])
+    m = dg.m
+    m_loc = max(1, -(-m // n_sh))
+    pad = m_loc * n_sh - m
+
+    def shard(x, fill):
+        x = torch.cat([x, torch.full((pad,), fill, dtype=x.dtype,
+                                     device=x.device)])
+        return x.view(n_sh, m_loc)
+
+    eids = torch.arange(m, dtype=torch.int32, device=dg.device)
+    _, agg, n_pairs, csrc, cdst, cw, m_coarse = _sharded_contract_arrays(
+        dg.n, m, shard(dg.src, 0), shard(dg.dst, 0), shard(dg.weight, 0.0),
+        shard(eids, -1))
+    nc, mc = (int(v) for v in torch.stack([n_pairs, m_coarse]).tolist())
+    with get_tracer().span("hierarchy.coarse_graph", n=nc, m=mc):
+        coarse = build_graph(nc, csrc[:mc].cpu().numpy(),
+                             cdst[:mc].cpu().numpy(), cw[:mc].cpu().numpy())
+    return agg, coarse
+
+
 def _laplacian_diag(g: Graph) -> np.ndarray:
     deg = np.zeros(g.n, dtype=np.float64)
     np.add.at(deg, g.src, g.weight)
@@ -236,15 +316,13 @@ def build_hierarchy(
     (``config`` if given, else a pdGRASS config from
     ``alpha``/``chunk``/``pdgrass_kwargs``), stores the sparsifier
     Laplacian as ELL slabs, then contracts the sparsifier by heavy-edge
-    matching into the next level's graph."""
-    if contraction == "sharded" or mesh is not None:
-        raise NotImplementedError(
-            "contraction='sharded' and mesh= are not ported to repro_torch "
-            "yet (distributed slice)")
-    if contraction not in ("device", "host"):
+    matching into the next level's graph.  ``contraction="sharded"``
+    contracts over ``mesh``'s ``shard_axis`` (required in that mode)."""
+    if contraction not in ("device", "host", "sharded"):
         raise ValueError(f"unknown contraction mode {contraction!r}; "
-                         f"want 'device' or 'host'")
-    del shard_axis
+                         f"want 'device', 'host' or 'sharded'")
+    if contraction == "sharded" and mesh is None:
+        raise ValueError("contraction='sharded' needs a mesh")
     if config is None:
         config = pdgrass_config(alpha=alpha, chunk=chunk, **pdgrass_kwargs)
     pipe = Pipeline(config)
@@ -271,6 +349,10 @@ def build_hierarchy(
                         trace_annotation(f"hierarchy.contract.{contraction}"):
                     if contraction == "device":
                         agg_dev, coarse = device_contract(dg)
+                        m_sparsifier = dg.m
+                    elif contraction == "sharded":
+                        agg_dev, coarse = sharded_contract(
+                            dg, mesh, axis=shard_axis)
                         m_sparsifier = dg.m
                     else:
                         sg = subgraph(g, edge_mask) \

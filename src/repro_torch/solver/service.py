@@ -25,9 +25,8 @@ group's batch takes one of a handful of widths (fixed slots, variable
 occupancy); the padding columns are inert.
 
 Departures from the reference: the TPU knobs ``interpret`` and ``tile_n``
-are gone and ``device`` is new; ``mesh=`` and ``contraction="sharded"``
-raise ``NotImplementedError`` (the sharded plane is not ported); with no
-jit cache to inspect, ``warmup(widths=...)`` books a bucket's first warm-up
+are gone and ``device`` is new; a ``mesh`` must live on ``device``; with
+no jit cache to inspect, ``warmup(widths=...)`` books a bucket's first warm-up
 as its compile time (the reference's own fallback); artifacts are keyed
 under their own schema tag, so a ``disk_dir`` shared with the reference
 never aliases.
@@ -127,16 +126,22 @@ class SolverService:
         ``store`` — caps live on the store you build.
 
         ``contraction`` selects the hierarchy-build matching path
-        (``"device"`` propose/accept rounds or ``"host"`` sequential
-        oracle); it participates in the artifact fingerprint, so the modes
-        never share cache entries.
+        (``"device"`` propose/accept rounds, ``"host"`` sequential oracle,
+        or ``"sharded"`` rounds over ``mesh``; the default is
+        ``"sharded"`` with a mesh, else ``"device"``); it participates in
+        the artifact fingerprint, so the modes never share cache entries.
         ``max_pending_columns`` bounds the scheduler: a ``submit`` that
         would push the queued RHS column count past the budget raises
         :class:`AdmissionError` instead of growing the next flush without
         limit (``None`` = unbounded).
 
-        ``mesh`` (the sharded solve plane) and ``contraction="sharded"``
-        are not ported and raise ``NotImplementedError``.
+        ``mesh`` (a :class:`repro_torch.launch.Mesh` on ``device``)
+        switches the solve plane onto its shards: solves run on
+        :mod:`repro_torch.solver.sharded`, rows sharded over
+        ``shard_axis``, and the mesh descriptor joins the artifact key, so
+        mesh and single-device artifacts never alias.  ``precond="jacobi"``
+        is single-device only and raises ``NotImplementedError`` with a
+        mesh.
 
         ``matvec_impl`` selects the solve plane's kernel path — ``"fused"``
         (kernels K1-K3: batched spmv, fused Chebyshev step, fused
@@ -152,16 +157,22 @@ class SolverService:
             raise ValueError(
                 "pass either alpha or pipeline, not both — alpha is "
                 "pipeline.alpha (use pipeline.replace(alpha=...))")
-        if mesh is not None or contraction == "sharded":
-            raise NotImplementedError(
-                "SolverService(mesh=...) and contraction='sharded' — the "
-                "sharded solve plane — are not ported to repro_torch yet")
         if contraction is None:
-            contraction = "device"
-        if contraction not in ("device", "host"):
+            contraction = "sharded" if mesh is not None else "device"
+        if contraction not in ("device", "host", "sharded"):
             raise ValueError(
                 f"unknown contraction mode {contraction!r}; "
-                f"want 'device' or 'host'")
+                f"want 'device', 'host' or 'sharded'")
+        if contraction == "sharded" and mesh is None:
+            raise ValueError("contraction='sharded' needs a mesh")
+        if mesh is not None and precond == "jacobi":
+            # fail at construction, not first flush: the sharded plane
+            # supports 'hierarchy' and 'none'
+            raise NotImplementedError(
+                "precond='jacobi' is not supported with mesh= — "
+                "use precond='hierarchy' or 'none'")
+        if mesh is not None:
+            mesh.check_device(device, "the service")
         self.pipeline = (pipeline if pipeline is not None
                          else pdgrass_config(
                              alpha=0.05 if alpha is None else alpha,
@@ -269,6 +280,8 @@ class SolverService:
             idx, val = ell_laplacian(g, device=self.device)
             hier = (build_hierarchy(g, config=config, coarse_n=self.coarse_n,
                                     contraction=self.contraction,
+                                    mesh=self.mesh,
+                                    shard_axis=self.shard_axis,
                                     device=self.device)
                     if self.precond == "hierarchy" else None)
             return idx, val, hier
@@ -289,7 +302,8 @@ class SolverService:
         # take a while — holding _lock here would stall every submit
         idx, val, hier = artifacts
         fn = make_solver(idx, val, hierarchy=hier, precond=self.precond,
-                         matvec_impl=self.matvec_impl, device=self.device)
+                         matvec_impl=self.matvec_impl, mesh=self.mesh,
+                         shard_axis=self.shard_axis, device=self.device)
         with self._lock:
             # two racing builders: first insert wins, both get one closure
             fn = self._solvers.setdefault(key, fn)

@@ -1,5 +1,5 @@
 """The CUDA kernels K1-K6 against their plain PyTorch versions, and the
-port's service and LM serving path, on the card.
+port's service, sharded planes and LM serving path, on the card.
 
 Every ``gpu``-marked test needs a CUDA device and skips without one
 (decided in a fixture).  The file imports no JAX, so it runs on a machine
@@ -23,16 +23,19 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import recovery  # noqa: E402
-from repro_torch.core.graph import mesh2d  # noqa: E402
+from repro_torch.core.distributed import recover_mixed  # noqa: E402
+from repro_torch.core.graph import mesh2d, star_hub  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import similarity as ksim  # noqa: E402
 from repro_torch.kernels import vcycle_fused as tvf  # noqa: E402
+from repro_torch.launch import make_mesh  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.pipeline import Pipeline, pdgrass_config  # noqa: E402
 from repro_torch.solver import (SolveRequest, SolverService,  # noqa: E402
                                 build_hierarchy, ell_laplacian, make_solver)
 from repro_torch.solver.hierarchy import aggregate_csr  # noqa: E402
+from repro_torch.solver.sharded import shard_ell_slabs  # noqa: E402
 
 from _k4_layouts import K4_LAYOUTS, k4_layout  # noqa: E402
 
@@ -564,6 +567,69 @@ def test_gpu_reduced_model_matches_cpu(cuda, dtype):
     for a, b in zip(out["cuda"][1] + out["cuda"][2],
                     out["cpu"][1] + out["cpu"][2]):
         torch.testing.assert_close(a, b, **tol)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_sh", [1, 8])
+def test_gpu_sharded_fused_matches_ref(cuda, n_sh):
+    """The sharded plane on the card: K1 on every shard's halo-extended x
+    against its plain version, +-0 iterations and x bitwise; a lone column
+    equals its column in the batch."""
+    g = mesh2d(48, 48, seed=4)
+    mesh = make_mesh((n_sh,), ("data",), device=cuda)
+    hier = build_hierarchy(g, alpha=0.05, contraction="sharded", mesh=mesh,
+                           device=cuda)
+    idx, val = ell_laplacian(g, device=cuda)
+    b = np.random.default_rng(6).standard_normal((g.n, 3)).astype(np.float32)
+    kops.reset_launches()
+    fused = make_solver(idx, val, hier, matvec_impl="fused", mesh=mesh,
+                        device=cuda)
+    res = fused(b, tol=1e-5, maxiter=2000)
+    assert kops.launch_counts()["spmv_ell_batched"] > 0
+    ref = make_solver(idx, val, hier, matvec_impl="ref", mesh=mesh,
+                      device=cuda)(b, tol=1e-5, maxiter=2000)
+    assert torch.equal(res.iters, ref.iters)
+    assert torch.equal(res.x, ref.x)
+    assert bool(res.converged.all())
+    one = fused(b[:, 1:2], tol=1e-5, maxiter=2000)
+    assert torch.equal(one.x[:, 0], res.x[:, 1])
+    assert int(one.iters[0]) == int(res.iters[1])
+
+
+@pytest.mark.gpu
+def test_gpu_recover_mixed_matches_cpu(cuda):
+    """The distributed recovery on the card (K4 in every shard's rounds and
+    in the inner engine's marking) equals its CPU run bitwise."""
+    g = star_hub(600, extra=500, seed=5)
+    out = {}
+    for dev in ("cpu", cuda):
+        prep = Pipeline(pdgrass_config(chunk=256)).prepare(g, device=dev)
+        mesh = make_mesh((8,), ("data",), device=dev)
+        kops.reset_launches()
+        out[str(dev)] = (recover_mixed(prep, mesh, chunk=256, cutoff=50),
+                         kops.launch_counts()["similarity_mark"])
+    assert out["cpu"][1] == 0 and out["cuda"][1] > 0
+    assert torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8])
+def test_gpu_k1_on_halo_extended_x(cuda, k):
+    """K1 on a shard's x_ext = [x_loc; x[halo]], which has more rows than
+    the shard's slab, bitwise equal to its plain version."""
+    g = mesh2d(64, 64, seed=1)
+    idx, val = ell_laplacian(g, device=cuda)
+    slab, meta = shard_ell_slabs(idx, val, 8)
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn((meta.n_pad, k), generator=gen, device=cuda)
+    halo = slab.halo.view(8, meta.halo).long()
+    for s in range(8):
+        rows = slice(s * meta.n_loc, (s + 1) * meta.n_loc)
+        x_ext = torch.cat([x[rows], x[halo[s]]])
+        assert x_ext.shape[0] > meta.n_loc
+        assert torch.equal(
+            tvf.spmv_ell_batched(slab.idx[rows], slab.val[rows], x_ext),
+            kref.spmv_ell_batched_ref(slab.idx[rows], slab.val[rows], x_ext))
+
 
 def test_port_and_chip_smoke_import_no_jax():
     """Importing every module of repro_torch leaves neither ``jax`` nor

@@ -282,9 +282,22 @@ def test_unported_score_stages_raise(graphs, kind):
 
 @pytest.mark.parametrize("engine", ["distributed"])
 def test_unported_engines_raise(graphs, engine):
+    """Every engine is ported now, so none raises: ``distributed`` without
+    a mesh runs on a 1-shard mesh on the problem's device and recovers the
+    reference engine's edges (the 8-shard parity tests are in
+    ``tests/test_torch_distributed.py``); a mesh on another device than
+    the problem's is refused."""
     cfg = tconfig(alpha=0.05, chunk=CHUNK, engine=engine)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TPipeline(cfg).run(graphs[1]["mesh12"], device="cpu")
+    got = TPipeline(cfg).run(graphs[1]["mesh12"], device="cpu")
+    want = JPipeline(jconfig(alpha=0.05, chunk=CHUNK, engine=engine)).run(
+        graphs[0]["mesh12"])
+    assert got.stats["n_shards"] == 1 and got.stats["n_recovered"] > 0
+    np.testing.assert_array_equal(got.recovered_mask,
+                                  np.asarray(want.recovered_mask))
+    from repro_torch.launch import make_mesh
+    with pytest.raises(ValueError, match="mesh"):
+        TPipeline(cfg).run(graphs[1]["mesh12"], device="cpu",
+                           mesh=make_mesh((2,), ("data",), device="cuda"))
 
 
 def test_serial_engine_matches_rounds_without_target(graphs):

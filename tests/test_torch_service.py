@@ -30,6 +30,7 @@ from repro.solver import SolverService as JSolverService  # noqa: E402
 from repro.solver import cache as jcache  # noqa: E402
 from repro_torch.core import build_graph, grid2d, mesh2d  # noqa: E402
 from repro_torch.core.pcg import pcg_host  # noqa: E402
+from repro_torch.launch import make_mesh  # noqa: E402
 from repro_torch.pipeline import (PipelineConfig, TreeConfig,  # noqa: E402
                                   fegrass_config, pdgrass_config)
 from repro_torch.solver import (GraphStore, LRUCache,  # noqa: E402
@@ -965,10 +966,16 @@ def test_service_defaults_to_cuda_and_rejects_the_sharded_plane():
     svc = SolverService(device="cpu", alpha=0.05)
     assert svc.matvec_impl == "ref"
     assert svc.stats()["hierarchy"]["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="sharded"):
-        SolverService(device="cpu", alpha=0.05, mesh=object())
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # the sharded plane is ported; what is rejected is what the reference
+    # rejects (end-to-end tests in tests/test_torch_sharded.py)
+    mesh = make_mesh((8,), ("data",), device="cpu")
+    assert SolverService(device="cpu", alpha=0.05,
+                         mesh=mesh).contraction == "sharded"
+    assert svc.stats()["mesh"]["descriptor"] is None
+    with pytest.raises(ValueError, match="needs a mesh"):
         SolverService(device="cpu", alpha=0.05, contraction="sharded")
+    with pytest.raises(NotImplementedError, match="jacobi"):
+        SolverService(device="cpu", alpha=0.05, precond="jacobi", mesh=mesh)
 
 
 def test_warmup_widths_books_each_bucket_once():

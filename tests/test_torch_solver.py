@@ -28,6 +28,7 @@ from repro.pipeline import pdgrass_config as jconfig  # noqa: E402
 from repro.solver import device_pcg as jpcg  # noqa: E402
 from repro.solver import hierarchy as jhier  # noqa: E402
 from repro_torch.core import graph as tgraph  # noqa: E402
+from repro_torch.launch import make_mesh  # noqa: E402
 from repro_torch.pipeline import pdgrass_config as tconfig  # noqa: E402
 from repro_torch.solver import device_pcg as tpcg  # noqa: E402
 from repro_torch.solver import hierarchy as thier  # noqa: E402
@@ -139,12 +140,19 @@ def test_rho_matches_reference(hierarchies, name):
 
 
 def test_sharded_paths_raise():
-    with pytest.raises(NotImplementedError):
+    """The sharded paths are ported; they raise where the reference does:
+    ``"sharded"`` without a mesh, the ``"kernel"`` route and the Jacobi
+    preconditioner on a mesh."""
+    with pytest.raises(ValueError, match="needs a mesh"):
         thier.build_hierarchy(TG["mesh12"], contraction="sharded",
                               device="cpu")
     idx, val = tpcg.ell_laplacian(TG["mesh12"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        tpcg.make_solver(idx, val, precond="none", mesh=object(),
+    mesh = make_mesh((3,), ("data",), device="cpu")
+    with pytest.raises(ValueError, match="'ref' or 'fused'"):
+        tpcg.make_solver(idx, val, precond="none", mesh=mesh,
+                         matvec_impl="kernel", device="cpu")
+    with pytest.raises(NotImplementedError, match="jacobi"):
+        tpcg.make_solver(idx, val, precond="jacobi", mesh=mesh,
                          device="cpu")
 
 
