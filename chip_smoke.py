@@ -121,6 +121,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      trips); K1 also at a shard's shape (shard 0 of the main operator's
      8-shard split, on its halo-extended x, k = 8), and the K1 and K4
      records carry the sharded paths' launches (``"sharded"``).
+  9. the analysis checkers on the card: ``cuda_check`` over the library
+     this run built (every kernel's registers, static shared memory and
+     spills from its ptxas log; the launch limits of the suite's and the
+     main path's levels; the sharded layout), the dispatch audit of the
+     six registry entries on the card, and of phase 3's solver at full
+     width (8 columns, tol 0, 16 and 32 trips: aten ops and host
+     transfers a trip; 5 against 7 columns for the structure rule); any
+     error finding fails the run.
 
 Each path's launch counts are set to 0 just before it and read just after:
 K1-K4 over phase 3 (the ``kernels`` record gives K4's main-path launches;
@@ -146,8 +154,6 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
-F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES_PER_S = 2e9      # at most the H100's SM clock, so sleeps run long
 MAIN_ROWS = 1024
 TOL, MAXITER, K = 1e-3, 2000, 8
@@ -193,12 +199,6 @@ def time_ms(torch, fn, reps: int = 20, queued: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound_ms(nbytes: float, flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_close(torch, name, got, want, scale):
@@ -1115,35 +1115,6 @@ def ell_to_csr(torch, idx, val):
             (n, n), check_invariants=True).coalesce().to_sparse_csr()
 
 
-def k4_bound(torch, args):
-    """Bytes and operations one K4 launch needs on these inputs: every
-    row's subtask id read and its output byte written, the candidates read
-    once, and the two signatures of only those rows that a recovered
-    candidate (cbeta >= 0) of their own subtask could mark (no other row's
-    result depends on its signatures); operations, the 4 (c1)^2-grid
-    compares, pairs with a + b <= min(beta, c1 - 1), of every (row,
-    same-subtask candidate) pair.  Returns (bound ms, bound_by, bytes,
-    rows in the recovered candidates' subtasks, (row, candidate, pair)
-    cells)."""
-    csu, csv, cbeta, cseg, esu, esv, eseg = args
-    K, c1 = csu.shape
-    m = esu.shape[0]
-    live_segs = torch.unique(cseg[cbeta >= 0])
-    sig_rows = int(torch.isin(eseg, live_segs).sum())
-    nbytes = m * (4 + 1) + sig_rows * 2 * c1 * 4 + K * (2 * c1 * 4 + 8)
-    a = torch.arange(c1, device="cuda")
-    apb = a[:, None] + a[None, :]
-    pairs = ((apb[None] <= torch.clamp(cbeta, max=c1 - 1)[:, None, None])
-             .flatten(1).sum(1))                       # [K], 0 if beta < 0
-    lo = int(torch.minimum(eseg.min(), cseg.min()))
-    seg_rows = torch.bincount((eseg - lo).long(),
-                              minlength=int(cseg.max()) - lo + 1)
-    rows_k = seg_rows[(cseg - lo).long()]              # rows of k's subtask
-    cells = float((rows_k * pairs).sum())
-    bms, by = bound_ms(nbytes, 4.0 * cells)
-    return bms, by, nbytes, sig_rows, cells
-
-
 def k45_records(np, torch, kops, ref, k4_runs, main_k4_runs, k4_launches,
                 idx, val, k5_launches):
     """K4 on the inputs of the K4 path's first launch and summed over all
@@ -1152,6 +1123,8 @@ def k45_records(np, torch, kops, ref, k4_runs, main_k4_runs, k4_launches,
     the plain version, device ms beside the plain version's, the bound and
     (K5) ``torch.sparse.mm``.  ``k4_launches`` is K4's count over the main
     path's build."""
+    from repro_torch.launch import roofline as rf
+
     k4_args = k4_runs[0]
     csu, csv, cbeta, cseg, esu, esv, eseg = k4_args
     K, c1 = csu.shape
@@ -1162,7 +1135,8 @@ def k45_records(np, torch, kops, ref, k4_runs, main_k4_runs, k4_launches,
         fail("K4 is not bitwise equal to its plain version at the K4 "
              "path's shape")
     err4 = float((got.int() - want.int()).abs().max())
-    bms, by, nbytes, sig_rows, cells = k4_bound(torch, k4_args)
+    nbytes, ops, sig_rows, cells = rf.similarity_mark_launch(k4_args)
+    bms, by = rf.bound_ms(nbytes, ops)
     rec4 = dict(
         name="similarity_mark", route="cuda",
         source="src/repro_torch/kernels/csrc/similarity_mark.cu",
@@ -1188,7 +1162,8 @@ def k45_records(np, torch, kops, ref, k4_runs, main_k4_runs, k4_launches,
         per_ms = [time_ms(torch, lambda: kops.similarity_mark(*a), reps=5)
                   for a in runs]
         path_ms, median = sum(per_ms), sorted(per_ms)[len(per_ms) // 2]
-        path_bound = sum(k4_bound(torch, a)[0] for a in runs)
+        path_bound = sum(rf.bound_ms(*rf.similarity_mark_launch(a)[:2])[0]
+                         for a in runs)
         print(f"K4 over {label} {len(runs)} launches: device time "
               f"{path_ms:.4f} ms in all (median {median:.4f} ms, max "
               f"{max(per_ms):.4f} ms a launch), summed bound "
@@ -1215,7 +1190,7 @@ def k45_records(np, torch, kops, ref, k4_runs, main_k4_runs, k4_launches,
     err5 = float((y_k - y_r).abs().max())
     A = ell_to_csr(torch, idx, val)
     x1 = x[:, None].contiguous()
-    bms, by = bound_ms(n * L * 8 + n * 4 * 2, 2.0 * n * L)
+    bms, by = rf.bound_ms(*rf.spmv_launch(n, L))
     rec5 = dict(
         name="spmv_ell", route="cuda",
         source="src/repro_torch/kernels/csrc/spmv_ell.cu",
@@ -1235,6 +1210,8 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
     """Each kernel at the main path's shapes: error against its plain
     version, device ms beside the plain version's, its bound and (K1) the
     ``torch.sparse.mm`` yardstick."""
+    from repro_torch.launch import roofline as rf
+
     lev = hier.levels[0]
     n, L = lev.idx.shape
     nc = lev.n_coarse
@@ -1255,8 +1232,7 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
         fail(f"K1 is not bitwise equal to its plain version at the main "
              f"path's shape (max abs err {err1:.3e})")
     A = ell_to_csr(torch, idx, val)
-    nbytes = tn * tL * 8 + tn * K * 4 * 2
-    bms, by = bound_ms(nbytes, 2.0 * tn * tL * K)
+    bms, by = rf.bound_ms(*rf.spmv_batched_launch(tn, tL, K))
     records.append(dict(
         name="spmv_ell_batched", route="cuda",
         source="src/repro_torch/kernels/csrc/spmv_ell_batched.cu",
@@ -1278,8 +1254,7 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
                       for _ in range(3))
         linv = 1.0 / lv.diag
         lout = torch.empty_like(lr)
-        bms, by = bound_ms(ln * lL * 8 + ln * 4 + ln * K * 4 * 5,
-                           ln * K * (2.0 * lL + 6))
+        bms, by = rf.bound_ms(*rf.cheby_step_launch(ln, lL, K))
         k2_levels.append(dict(level=i, n=ln, L=lL, ms=time_ms(
             torch, lambda: vf.cheby_step(lv.idx, lv.val, linv, lr, lz, lp,
                                          lout, **kw)),
@@ -1307,9 +1282,7 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
     check_close(torch, "K2 main-path p", pk, pr, float(r.abs().max()))
     check_close(torch, "K2 main-path z", zk, zr, float(r.abs().max()))
     p_buf, z_out = p0.clone(), torch.empty_like(r)
-    # slabs and inv_d once; r, z_prev and p read, p and z written
-    nbytes = n * L * 8 + n * 4 + n * K * 4 * 5
-    bms, by = bound_ms(nbytes, n * K * (2.0 * L + 6))
+    bms, by = rf.bound_ms(*rf.cheby_step_launch(n, L, K))
     records.append(dict(
         name="cheby_step", route="cuda",
         source="src/repro_torch/kernels/csrc/cheby_step.cu",
@@ -1338,9 +1311,7 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
             fail(f"K3 is not bitwise equal to its plain version at level "
                  f"{i} (max abs err {float((rk - rr).abs().max()):.3e})")
         lnc = lv.n_coarse
-        nbytes = (ln * lL * 8 + ln * 4 + (lnc + 1) * 4 + ln * K * 4 * 2
-                  + lnc * K * 4)
-        bms, by = bound_ms(nbytes, ln * K * (2.0 * lL + 2))
+        bms, by = rf.bound_ms(*rf.restrict_residual_launch(ln, lL, K, lnc))
         levels.append(dict(level=i, n=ln, L=lL, n_coarse=lnc,
                            agg_max=lv.agg_max,
                            ms=time_ms(torch, lambda: restrict(lr, lz)),
@@ -1385,6 +1356,7 @@ def k1_shard_record(torch, vf, ref, idx, val, launches):
     plain version's, the bound and ``torch.sparse.mm`` on a CSR copy of
     the shard's local operator.  ``launches`` is K1's count over phase
     6e's sharded solve."""
+    from repro_torch.launch import roofline as rf
     from repro_torch.solver.sharded import shard_ell_slabs
 
     slab, meta = shard_ell_slabs(idx, val, SHARDS)
@@ -1408,7 +1380,7 @@ def k1_shard_record(torch, vf, ref, idx, val, launches):
             torch.stack([torch.arange(n, device="cuda").repeat_interleave(L),
                          s_idx.flatten().long()]), s_val.flatten(), (n, nx),
             check_invariants=True).coalesce().to_sparse_csr()
-    bms, by = bound_ms(n * L * 8 + nx * K * 4 + n * K * 4, 2.0 * n * L * K)
+    bms, by = rf.bound_ms(*rf.spmv_batched_launch(n, L, K, nx))
     row = dict(n_loc=n, halo=meta.halo, nx=nx, k=K, L=L, launches=launches,
                max_abs_err=float((y_k - y_r).abs().max()),
                ms=time_ms(torch, lambda: vf.spmv_ell_batched(s_idx, s_val,
@@ -1457,6 +1429,90 @@ def trip_profile(torch, solver, b_dev, trips=30, label="fused solve"):
           f"{len(evs) / trips:.0f} device ops a trip; top: " + "; ".join(
               f"{name[:48]} {us / 1e3 / trips:.4f} ms" for name, us in top),
           flush=True)
+    return len(evs) / trips
+
+
+def analysis_phase(torch, solver, b_dev, hier, device_ops):
+    """The analysis checkers on the card: ``cuda_check`` over the library
+    this run built (each kernel's registers, static shared memory and
+    spills printed) and over the main path's levels; the dispatch audit of
+    every registry entry; then of the main path's solver at full width,
+    8 columns at tol 0 for 16 and 32 trips, and 5 against 7 columns for
+    the structure rule.  Fails on any error finding."""
+    from repro_torch.analysis import cuda_check, dispatch_audit
+    from repro_torch.analysis.findings import SEV_ERROR
+    from repro_torch.analysis.registry import HOT_ENTRIES
+    from repro_torch.launch.roofline import hierarchy_level_triples
+
+    t0 = time.perf_counter()
+    report = cuda_check.check_suite(device="cuda")
+    kernels, found = report.kernels, list(report.findings)
+    found += cuda_check.check_level_triples(
+        hierarchy_level_triples(hier), k=16,
+        graph=f"mesh2d({MAIN_ROWS}, {MAIN_ROWS})")
+    for r in kernels:
+        args = ", ".join("T" if a is None else str(a)
+                         for a in r.template_args)
+        print(f"ptxas {r.source} {r.name}{f'<{args}>' if args else ''}: "
+              f"{r.registers} registers, {r.smem} bytes static smem, "
+              f"{r.stack} bytes stack, spill stores {r.spill_stores} "
+              f"loads {r.spill_loads} bytes", flush=True)
+    for f in found:
+        print(f"cuda_check: {f.format()} ({f.severity})", flush=True)
+    errors = [f for f in found if f.severity == SEV_ERROR]
+    print(f"cuda_check: {len(kernels)} kernels, {len(found)} finding(s), "
+          f"{len(errors)} error(s), {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    if not kernels or errors or report.not_run:
+        fail(f"cuda_check: {len(errors)} error finding(s) over "
+             f"{len(kernels)} kernels; not run: {report.not_run}")
+
+    # a positive control of the sync warnings' hook: a host-to-device copy
+    # that only the CUDA sync debug mode sees, never the dispatch mode
+    control = dispatch_audit.audit_callable(
+        "planted_h2d", lambda x: x + torch.tensor(1.0, device="cuda"),
+        (torch.ones(4, device="cuda"),))
+    seen = [f for f in control.findings if f.rule == "audit-host-transfer"
+            and "a CUDA sync warning" in f.message]
+    print(f"audit control: a planted host-to-device copy gives "
+          f"{len(seen)} sync-warning finding(s)", flush=True)
+    if len(seen) != 1:
+        fail("the dispatch audit missed a planted host-to-device copy: "
+             f"{[f.format() for f in control.findings]}")
+
+    t0 = time.perf_counter()
+    audit = []
+    for entry in HOT_ENTRIES:
+        rep = dispatch_audit.audit_entry(entry, "cuda")
+        print(f"audit {entry.name}: {rep.ops} aten ops, {rep.transfers} "
+              f"host transfers a call" + (
+                  f"; {rep.ops_per_trip:g} ops and "
+                  f"{rep.transfers_per_trip:g} transfers a trip"
+                  if rep.ops_per_trip is not None else "")
+              + f"; {len(rep.findings)} finding(s)", flush=True)
+        audit += rep.findings
+    print(f"audit of {len(HOT_ENTRIES)} registry entries on the card: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    t0 = time.perf_counter()
+    full = dispatch_audit.audit_callable(
+        "main_path_solve", solver, (b_dev, 0.0, 16), trips_arg=2)
+    bucket = dispatch_audit.audit_callable(
+        "main_path_solve", solver, (b_dev[:, :5].contiguous(), 0.0, 16),
+        (b_dev[:, :7].contiguous(), 0.0, 16))
+    audit += full.findings + bucket.findings
+    print(f"audit at full width (n = {b_dev.shape[0]}, 8 columns, tol 0, "
+          f"{dispatch_audit.TRIPS} trips): {full.ops_per_trip:g} aten ops "
+          f"and {full.transfers_per_trip:g} host transfers a trip "
+          f"(profiler: {device_ops:.0f} device ops a trip); "
+          f"{full.transfers} transfers over {dispatch_audit.TRIPS[0]} trips;"
+          f" 5 against 7 columns: {bucket.ops} aten ops each; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for f in audit:
+        print(f"audit: {f.format()}", flush=True)
+    if audit:
+        fail(f"the dispatch audit reported {len(audit)} unallowed "
+             f"finding(s) on the card")
 
 
 def k6_edge_checks(torch, kops, ref):
@@ -1693,6 +1749,8 @@ def k6_record(torch, kops, ref, args, launches, card_clock_mhz):
     version, device ms beside the plain version's and the bound, with the
     exponentials' issue-rate term and the time on the same inputs cast to
     float32 printed beside it."""
+    from repro_torch.launch import roofline as rf
+
     x1, dt, Bm, Cm, A, h0 = args
     B, S, di = x1.shape
     state = A.shape[1]
@@ -1708,11 +1766,10 @@ def k6_record(torch, kops, ref, args, launches, card_clock_mhz):
                  f"path's shape on {ins[0].dtype} inputs (max abs err "
                  f"{errs[-1]:.3e})")
     cells = B * S * di * state
-    nbytes = (2 * B * S * di * x1.element_size() + 4 * B * S * di
-              + 2 * B * S * state * Bm.element_size() + 4 * di * state
-              + 8 * B * di * state)
-    bms, by = bound_ms(nbytes, 6.0 * cells + B * S * di)
-    sfu_ms = cells / (16 * 132 * card_clock_mhz * 1e6) * 1e3
+    nbytes, ops = rf.ssm_scan_launch(B, S, di, state, x1.element_size(),
+                                     Bm.element_size())
+    bms, by = rf.bound_ms(nbytes, ops)
+    sfu_ms = rf.ssm_scan_expf_ms(B, S, di, state, card_clock_mhz)
     rec = dict(
         name="ssm_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -1722,14 +1779,15 @@ def k6_record(torch, kops, ref, args, launches, card_clock_mhz):
         plain_ms=time_ms(torch, lambda: ref.ssm_scan_ref(*args), reps=2),
         bound_ms=bms, bound_by=by, library_ms=None)
     f32_ms = time_ms(torch, lambda: kops.ssm_scan(*f32))
-    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "f32 operations": (6.0 * cells + B * S * di) / F32_FLOPS * 1e3,
+    terms = {"bytes": nbytes / rf.HBM_BW * 1e3,
+             "f32 operations": ops / rf.F32_FLOPS * 1e3,
              "expf issue": sfu_ms}
     print(f"K6 shapes: B={B} S={S} di={di} state={state}, {x1.dtype} "
           f"inputs, B strides {Bm.stride()}; {nbytes} bytes, {cells} (b, t, "
           f"d, n) cells; terms (ms) "
           + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
-          + f" (expf: 16 a clock an SM, 132 SMs, {card_clock_mhz} MHz); "
+          + f" (expf: {rf.EXP_PER_CLOCK_SM} a clock an SM, {rf.SMS} SMs, "
+          f"{card_clock_mhz} MHz); "
           f"binding term: {max(terms, key=terms.get)}; K6 {rec['ms']:.4f} ms "
           f"on the path's inputs, {f32_ms:.4f} ms on them cast to float32 "
           f"(max abs err {errs[1]})", flush=True)
@@ -1943,7 +2001,7 @@ def main() -> int:
 
     # ---- phase 8: kernels at their paths' shapes -------------------------
     records = kernel_records(torch, vf, ref, hier, idx, val, counts)
-    trip_profile(torch, solver, b_dev)
+    device_ops = trip_profile(torch, solver, b_dev)
     records += k45_records(np, torch, kops, ref, k4_runs, main_k4_runs,
                            counts["similarity_mark"], idx, val, k5_launches)
     # the sharded paths of phase 6e: K1 at a shard's shape, K4's launches
@@ -1954,6 +2012,10 @@ def main() -> int:
     records.append(k6_record(torch, kops, ref, k6_args, k6_launches,
                              max_sm_clock_mhz()))
     phase_done("kernel_timing")
+
+    # ---- phase 9: the analysis checkers on the card ----------------------
+    analysis_phase(torch, solver, b_dev, hier, device_ops)
+    phase_done("analysis")
     print(f"phase seconds: {json.dumps(phase_s)}, total "
           f"{sum(phase_s.values()):.3f} s", flush=True)
 

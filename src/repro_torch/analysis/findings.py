@@ -15,11 +15,17 @@ a suppression without one is itself reported as ``meta-bare-allow`` — so
 every exception to an invariant documents *why* it is safe, reviewable in
 the diff that introduced it.
 
-The ruleset holds the rules of the ported checkers: the lock checker's
-and the meta rule.  The reference's ``jaxpr-*``, ``trace-*`` and
-``vmem-*`` rules belong to checkers of JAX programs and Pallas kernels;
-their torch and CUDA counterparts are not written yet, and each will add
-its own rules.
+A pragma alone on a comment line applies to the code line directly
+below its run of comment lines, so a line that several rules report can
+carry one reasoned pragma a rule above it.  A blank line ends the run:
+a stray pragma never reaches past it.
+
+The ruleset holds the rules of the ported checkers, each the torch or
+CUDA counterpart of the reference's: ``audit-*`` (the dispatch audit,
+for the reference's ``jaxpr-*``), ``sync-*`` (the host-sync lint, for
+``trace-*``), ``lock-*`` (the lock checker, the reference's own) and
+``cuda-*`` (the CUDA resource check, for ``vmem-*``), plus the meta
+rules.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ class Rule:
     """One invariant the analyzers enforce."""
 
     id: str
-    checker: str          # "locks" | "meta"
+    checker: str          # "audit" | "sync" | "locks" | "cuda" | "meta"
     severity: str
     summary: str
 
@@ -55,6 +61,43 @@ RULES: Tuple[Rule, ...] = (
          "*_locked method called without holding the lock"),
     Rule("meta-bare-allow", "meta", SEV_ERROR,
          "suppression pragma without a reason — every allow() must say why"),
+    Rule("sync-host-sync", "sync", SEV_ERROR,
+         "float()/int()/bool()/.item()/.tolist()/.cpu()/.numpy() of a "
+         "tensor in a hot module (a blocking device round trip)"),
+    Rule("sync-numpy-on-tensor", "sync", SEV_ERROR,
+         "np.* applied to a tensor in a hot module (a silent host copy)"),
+    Rule("sync-tensor-branch", "sync", SEV_ERROR,
+         "if/while/conditional expression whose test is a tensor in a hot "
+         "module (an implicit bool(): a host sync, and a branch a CUDA "
+         "graph cannot capture)"),
+    Rule("audit-host-transfer", "audit", SEV_ERROR,
+         "aten._local_scalar_dense, a copy to the CPU or a CUDA sync "
+         "warning inside a registered hot entry"),
+    Rule("audit-loop-transfer", "audit", SEV_ERROR,
+         "a host transfer whose count grows with the PCG trips faster than "
+         "the allowed rate (one per _PCG_CHECK_EVERY trips, at the allowed "
+         "line) — a sync per iteration"),
+    Rule("audit-f64-promotion", "audit", SEV_ERROR,
+         "a float64 output inside a declared-float32 hot entry"),
+    Rule("audit-structure-hazard", "audit", SEV_ERROR,
+         "the aten op sequence differs between two widths of one RHS pow2 "
+         "bucket — one CUDA graph cannot serve the bucket"),
+    Rule("cuda-smem-budget", "cuda", SEV_ERROR,
+         "a kernel's static shared memory above 48 KiB, or static plus "
+         "dynamic above the 227 KiB per-block opt-in (232,448 B)"),
+    Rule("cuda-register-budget", "cuda", SEV_ERROR,
+         "registers x __launch_bounds__ threads x min blocks above the "
+         "65,536 registers of an SM (spills are reported as warnings)"),
+    Rule("cuda-launch-limits", "cuda", SEV_ERROR,
+         "a level's launch arithmetic overflows the types the kernel's "
+         "source uses (grid as unsigned, int n/L/k and int products)"),
+    Rule("cuda-tile-halo", "cuda", SEV_ERROR,
+         "tile divisibility / halo extent violation in the sharded slab "
+         "layout"),
+    Rule("meta-not-run", "meta", SEV_ERROR,
+         "a check could not run where it must (on the card, or a hot "
+         "entry that failed to build or run) — an error, never a quiet "
+         "skip"),
 )
 
 RULE_IDS = frozenset(r.id for r in RULES)
@@ -87,12 +130,21 @@ def scan_pragmas(source: str, path: str
     """Collect ``# analysis: allow(<rule>)`` pragmas per line.
 
     Returns ``(allowed, findings)`` where ``allowed[line]`` is the set of
-    rule ids suppressed on that line, and ``findings`` reports bare
+    rule ids suppressed on that line (a pragma alone on a comment line
+    counts for the code line directly below its run of comment lines; a
+    blank line in between drops it), and ``findings`` reports bare
     (reason-less) or unknown-rule pragmas — a suppression of nothing is a
     typo that would otherwise silently not suppress."""
     allowed: Dict[int, set] = {}
     findings: List[Finding] = []
+    pending: set = set()    # pragmas on comment lines, for the next line
     for i, text in enumerate(source.splitlines(), start=1):
+        comment_only = text.lstrip().startswith("#")
+        if not text.strip():
+            pending = set()
+        elif pending and not comment_only:
+            allowed.setdefault(i, set()).update(pending)
+            pending = set()
         m = _ALLOW_RE.search(text)
         if not m:
             continue
@@ -109,7 +161,10 @@ def scan_pragmas(source: str, path: str
                 message=f"allow({rule}) carries no reason — write "
                         f"'# analysis: allow({rule}): <why this is safe>'"))
             continue
-        allowed.setdefault(i, set()).add(rule)
+        if comment_only:
+            pending.add(rule)
+        else:
+            allowed.setdefault(i, set()).add(rule)
     return allowed, findings
 
 

@@ -23,6 +23,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
+PTXAS_LOG = "ptxas.log"   # nvcc's -Xptxas -v output, beside the library
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no FMA contraction, so each kernel is bitwise equal to its
 # plain PyTorch version (every operation is rounded on its own)
@@ -72,11 +73,17 @@ def source_hash() -> str:
 
 def build() -> Path:
     """Compile every source (in parallel) and link the shared library;
-    returns its path.  Raises with the compiler's output on failure."""
+    returns its path.  The compiler's output (``-Xptxas -v``: each
+    kernel's registers, shared memory and spills) lands in
+    :data:`PTXAS_LOG` beside the library, so a cached build can be
+    checked too (:mod:`repro_torch.analysis.cuda_check`).  Raises with
+    the compiler's output on failure."""
     out_dir = BUILD_ROOT / source_hash()
     lib_path = out_dir / "librepro_torch_kernels.so"
-    if lib_path.exists():
-        build_info.update(path=str(lib_path), seconds=0.0, cached=True)
+    log_path = out_dir / PTXAS_LOG
+    if lib_path.exists() and log_path.exists():
+        build_info.update(path=str(lib_path), seconds=0.0, cached=True,
+                          log=log_path.read_text())
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -97,6 +104,9 @@ def build() -> Path:
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n" +
                                "\n".join(logs))
+        tmp_log = Path(tmp) / PTXAS_LOG
+        tmp_log.write_text("\n".join(logs))
+        os.replace(tmp_log, log_path)
         tmp_lib = Path(tmp) / lib_path.name
         link = subprocess.run(
             [nvcc, *ARCH, "-shared", "-o", str(tmp_lib),

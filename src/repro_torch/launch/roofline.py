@@ -1,0 +1,245 @@
+"""Byte and operation models of the solver's kernels, and the H100's peaks.
+
+The GSS half of the port of ``repro.launch.roofline``.  Two families of
+functions live here, and they count different things on purpose:
+
+* **Work models** (the reference's names and formulas, unchanged):
+  :func:`ell_spmv_bytes`, :func:`ell_spmv_flops`, :func:`vcycle_bytes`,
+  :func:`fused_smoother_bytes`, :func:`fused_restrict_residual_bytes`,
+  :func:`vcycle_bytes_fused`, :func:`hierarchy_level_shapes`,
+  :func:`hierarchy_level_triples` and :func:`achieved_bandwidth`.  They
+  model the stream traffic of the reference's kernels: the ELL spmv
+  counts a k-wide gather of ``x`` for *every stored entry* (gathers do
+  not coalesce across rows), and the fused sweeps count the whole level
+  crossing memory once a sweep.  They compare the fused V-cycle with the
+  unfused one and feed the launch-limit check
+  (:mod:`repro_torch.analysis.cuda_check`).
+* **Launch bounds** (``*_launch``): the least bytes and operations one
+  launch of a CUDA kernel of the port needs on its inputs, each input
+  read once and each output written once, whatever the kernel reads
+  again.  So the K1 bound counts ``x`` *once*, where
+  :func:`ell_spmv_bytes` counts it per gather.  :func:`bound_ms` turns a
+  launch's ``(bytes, operations)`` into the least time the card could
+  take.  ``chip_smoke.py`` prints these bounds beside every kernel's
+  time.
+
+Peaks are the H100 SXM's (NVIDIA's data sheet, dense rates, at the full
+700 W power limit): HBM3 at 3.35 TB/s and 67 TFLOP/s of float32 outside
+the tensor cores.  Data float32 and indices int32 unless a function says
+otherwise.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+HBM_BW = 3.35e12           # bytes/s, H100 SXM HBM3
+F32_FLOPS = 67e12          # float32 FLOP/s outside the tensor cores
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+EXP_PER_CLOCK_SM = 16      # expf results an SM issues a clock (its SFUs)
+
+_F32 = 4
+_I32 = 4
+
+
+def bound_ms(nbytes: float, flops: float) -> Tuple[float, str]:
+    """The least milliseconds the card could take for ``nbytes`` moved and
+    ``flops`` float32 operations: the larger of the two terms, and which
+    one it is (``"bytes"`` or ``"operations"``)."""
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# Work models of the reference (same names, same formulas)
+# ---------------------------------------------------------------------------
+
+def ell_spmv_bytes(n: int, ell_width: int, k: int,
+                   dtype_bytes: int = 4, idx_bytes: int = 4) -> int:
+    """Stream traffic of one batched ELL spmv ``y[n,k] = A @ x[n,k]``: the
+    idx/val slabs read once, a k-wide row of ``x`` gathered for *every*
+    stored entry, ``y`` written once.  Perfect caching of ``x`` would cut
+    the gather term to ``n*k`` (the launch bound,
+    :func:`spmv_batched_launch`, counts that)."""
+    slab = n * ell_width * (idx_bytes + dtype_bytes)
+    gather = n * ell_width * k * dtype_bytes
+    out = n * k * dtype_bytes
+    return slab + gather + out
+
+
+def ell_spmv_flops(n: int, ell_width: int, k: int) -> int:
+    """2 flops (mul + add) per stored entry per right-hand-side column."""
+    return 2 * n * ell_width * k
+
+
+def vcycle_bytes(level_shapes, k: int, cheby_degree: int = 3,
+                 dtype_bytes: int = 4) -> int:
+    """Stream traffic of one unfused V-cycle over ``level_shapes = [(n,
+    ell_width)]``: ``2*degree + 1`` spmvs a level (both smoothers and the
+    residual), plus the restriction and prolongation (one k-wide read and
+    write of the level each).  The coarsest dense solve is excluded."""
+    total = 0
+    for n, width in level_shapes:
+        total += (2 * cheby_degree + 1) * ell_spmv_bytes(
+            n, width, k, dtype_bytes=dtype_bytes)
+        total += 2 * 2 * n * k * dtype_bytes   # restrict + prolong r/w
+    return total
+
+
+def hierarchy_level_shapes(hierarchy) -> list:
+    """``[(n, ell_width)]`` of each fine level, for :func:`vcycle_bytes`."""
+    return [(int(lev.n), int(lev.idx.shape[1]))
+            for lev in hierarchy.levels]
+
+
+def fused_smoother_bytes(n: int, ell_width: int, k: int,
+                         cheby_degree: int = 3, with_guess: bool = False,
+                         dtype_bytes: int = 4, idx_bytes: int = 4) -> int:
+    """Traffic of one fused Chebyshev sweep with the level held on chip:
+    slab, diagonal and ``r`` (and the initial iterate on post-smooth
+    sweeps) read once, the smoothed ``z`` written once, whatever the
+    degree."""
+    del cheby_degree  # documents the degree independence
+    slab = n * ell_width * (idx_bytes + dtype_bytes)
+    vecs = (2 + (1 if with_guess else 0)) * n * k * dtype_bytes
+    diag = n * dtype_bytes
+    return slab + vecs + diag
+
+
+def fused_restrict_residual_bytes(n: int, ell_width: int, k: int,
+                                  n_coarse: int, dtype_bytes: int = 4,
+                                  idx_bytes: int = 4) -> int:
+    """Traffic of one fused restrict + residual pass, ``rc =
+    segment_sum(r - L z, agg)``: slab, agg, ``r`` and ``z`` read, only the
+    ``[n_coarse, k]`` coarse residual written."""
+    slab = n * ell_width * (idx_bytes + dtype_bytes)
+    vecs = 2 * n * k * dtype_bytes
+    agg = n * idx_bytes
+    out = n_coarse * k * dtype_bytes
+    return slab + vecs + agg + out
+
+
+def vcycle_bytes_fused(level_triples, k: int, cheby_degree: int = 3,
+                       dtype_bytes: int = 4) -> int:
+    """Traffic of one fused V-cycle over ``level_triples = [(n,
+    ell_width, n_coarse)]``: a fused pre-smooth, a fused restrict +
+    residual, the prolongation gather-add and a fused post-smooth a
+    level."""
+    total = 0
+    for n, width, nc in level_triples:
+        total += fused_smoother_bytes(n, width, k, cheby_degree,
+                                      with_guess=False,
+                                      dtype_bytes=dtype_bytes)
+        total += fused_restrict_residual_bytes(n, width, k, nc,
+                                               dtype_bytes=dtype_bytes)
+        total += (nc * k + 2 * n * k) * dtype_bytes    # prolong gather-add
+        total += fused_smoother_bytes(n, width, k, cheby_degree,
+                                      with_guess=True,
+                                      dtype_bytes=dtype_bytes)
+    return total
+
+
+def hierarchy_level_triples(hierarchy) -> list:
+    """``[(n, ell_width, n_coarse)]`` of each fine level of a port
+    :class:`~repro_torch.solver.hierarchy.Hierarchy`, for
+    :func:`vcycle_bytes_fused` and the launch-limit check."""
+    return [(int(lev.n), int(lev.idx.shape[1]), int(lev.n_coarse))
+            for lev in hierarchy.levels]
+
+
+def achieved_bandwidth(bytes_moved: float, seconds: float) -> dict:
+    """Achieved bytes/s over a measured span and its share of the HBM
+    rate."""
+    if seconds <= 0:
+        return {"bytes_per_s": 0.0, "frac_of_hbm": 0.0}
+    bps = bytes_moved / seconds
+    return {"bytes_per_s": bps, "frac_of_hbm": bps / HBM_BW}
+
+
+# ---------------------------------------------------------------------------
+# Launch bounds of the port's kernels: (bytes, operations) of one launch
+# ---------------------------------------------------------------------------
+
+def spmv_batched_launch(n: int, L: int, k: int, nx: int = None):
+    """K1, ``y[n, k] = A x`` with ``x [nx, k]`` (``nx`` = ``n`` unless a
+    halo extends it): the slabs, ``x`` and ``y`` once each; a multiply and
+    an add a stored entry a column."""
+    nx = n if nx is None else nx
+    return n * L * (_I32 + _F32) + nx * k * _F32 + n * k * _F32, \
+        2 * n * L * k
+
+
+def cheby_step_launch(n: int, L: int, k: int):
+    """K2, one recurrence step with its matvec: the slabs and ``inv_d``
+    once, ``r``, ``z_prev`` and ``p`` read, ``p`` and ``z`` written; the
+    matvec and six operations of the combines an element."""
+    return n * L * (_I32 + _F32) + n * _F32 + n * k * _F32 * 5, \
+        n * k * (2 * L + 6)
+
+
+def restrict_residual_launch(n: int, L: int, k: int, n_coarse: int):
+    """K3: the slabs, ``perm``, ``agg_ptr``, ``r`` and ``z`` once, the
+    coarse residual written; the matvec, the subtraction and the member
+    sum an element."""
+    return (n * L * (_I32 + _F32) + n * _I32 + (n_coarse + 1) * _I32
+            + n * k * _F32 * 2 + n_coarse * k * _F32), \
+        n * k * (2 * L + 2)
+
+
+def spmv_launch(n: int, L: int):
+    """K5, one column: the slabs, ``x`` and ``y`` once."""
+    return n * L * (_I32 + _F32) + n * _F32 * 2, 2 * n * L
+
+
+def ssm_scan_launch(B: int, S: int, di: int, state: int, x_bytes: int,
+                    bc_bytes: int):
+    """K6 on ``x``/``dt`` of ``x_bytes`` a value and ``B``/``C`` of
+    ``bc_bytes``: ``x`` and ``dt`` read, ``y`` written in float32, ``B``
+    and ``C`` read, ``A`` read, ``h0`` read and ``hT`` written; six
+    operations a (batch, step, channel, state) cell and one a (batch,
+    step, channel)."""
+    cells = B * S * di * state
+    nbytes = (2 * B * S * di * x_bytes + 4 * B * S * di
+              + 2 * B * S * state * bc_bytes + 4 * di * state
+              + 8 * B * di * state)
+    return nbytes, 6 * cells + B * S * di
+
+
+def ssm_scan_expf_ms(B: int, S: int, di: int, state: int,
+                     sm_clock_mhz: float) -> float:
+    """K6's exponentials at the SFUs' issue rate: one ``expf`` a cell,
+    :data:`EXP_PER_CLOCK_SM` a clock on each of :data:`SMS` SMs at
+    ``sm_clock_mhz`` (the card's maximum SM clock as ``nvidia-smi``
+    reports it)."""
+    return B * S * di * state / (EXP_PER_CLOCK_SM * SMS
+                                 * sm_clock_mhz * 1e6) * 1e3
+
+
+def similarity_mark_launch(args):
+    """K4 on these inputs, ``args = (csu, csv, cbeta, cseg, esu, esv,
+    eseg)``: every row's subtask id read and its output byte written, the
+    candidates read once, and the two signatures of only those rows that a
+    recovered candidate (``cbeta >= 0``) of their own subtask could mark;
+    operations, the 4 compares of each (c1)^2-grid pair with ``a + b <=
+    min(beta, c1 - 1)`` of every (row, same-subtask candidate) pair.
+
+    Returns ``(bytes, operations, sig_rows, cells)``: the rows in the
+    recovered candidates' subtasks and the (row, candidate, pair) cells."""
+    csu, csv, cbeta, cseg, esu, esv, eseg = args
+    K, c1 = csu.shape
+    m = esu.shape[0]
+    live_segs = torch.unique(cseg[cbeta >= 0])
+    sig_rows = int(torch.isin(eseg, live_segs).sum())
+    nbytes = m * (4 + 1) + sig_rows * 2 * c1 * 4 + K * (2 * c1 * 4 + 8)
+    a = torch.arange(c1, device=cseg.device)
+    apb = a[:, None] + a[None, :]
+    pairs = ((apb[None] <= torch.clamp(cbeta, max=c1 - 1)[:, None, None])
+             .flatten(1).sum(1))                       # [K], 0 if beta < 0
+    lo = int(torch.minimum(eseg.min(), cseg.min()))
+    seg_rows = torch.bincount((eseg - lo).long(),
+                              minlength=int(cseg.max()) - lo + 1)
+    rows_k = seg_rows[(cseg - lo).long()]              # rows of k's subtask
+    cells = float((rows_k * pairs).sum())
+    return nbytes, 4.0 * cells, sig_rows, cells

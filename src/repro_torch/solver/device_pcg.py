@@ -174,6 +174,7 @@ def make_vcycle(hier: Hierarchy, *, degree: int = 2,
     rho_dev = [estimate_dinv_rho_device(mv, lev.diag)
                for mv, lev in zip(matvecs, hier.levels)]
     # the one build-time sync: every level's estimate read back together
+    # analysis: allow(sync-host-sync): build time, once: the estimates
     rhos = torch.stack(rho_dev).tolist() if rho_dev else []
     if fused:
         smoothers = [make_fused_chebyshev(lev.idx, lev.val, lev.diag, rho,
@@ -249,7 +250,10 @@ def _pcg_loop(matvec: Callable, b, msolve: Callable, tol, maxiter,
     bnorm = torch.sqrt(colsum(b * b))
     bn = torch.clamp(bnorm, min=torch.finfo(b.dtype).tiny)
     maxiter_t = torch.broadcast_to(
+        # analysis: allow(audit-host-transfer): the trip caps, once a solve
         torch.as_tensor(maxiter, dtype=torch.int32, device=dev), (k,))
+    # analysis: allow(sync-host-sync): once a solve, before the loop
+    # analysis: allow(audit-host-transfer): the trip cap, read once a solve
     max_trips = int(maxiter_t.max()) if k else 0
     tol_inner = 0.5 * tol
     replace_every = 50
@@ -261,6 +265,9 @@ def _pcg_loop(matvec: Callable, b, msolve: Callable, tol, maxiter,
     done = (bnorm <= 0) | (maxiter_t <= 0)
     iters = torch.zeros((k,), dtype=torch.int32, device=dev)
     it = 0
+    # analysis: allow(sync-host-sync): the designated test of "all done"
+    # analysis: allow(audit-host-transfer): the designated test, at run time
+    # analysis: allow(audit-loop-transfer): once every _PCG_CHECK_EVERY trips
     while it < max_trips and bool((~done).any()):        # host sync
         for _ in range(min(_PCG_CHECK_EVERY, max_trips - it)):
             active = ~done

@@ -163,6 +163,7 @@ def _prep_level(lev, n_sh: int):
                           for a in agg_loc])
     agg_ptr = torch.zeros((n_sh, nc_pad + 1), dtype=torch.int32, device=dev)
     agg_ptr[:, 1:] = torch.cumsum(counts, dim=1)
+    # analysis: allow(sync-host-sync): build time, once a level: a loop bound
     agg_max = int(counts.max())
     rho_dev = estimate_dinv_rho_device(
         make_matvec(lev.idx, lev.val, "ref"), lev.diag)
@@ -261,6 +262,7 @@ def make_sharded_solver(idx, val, hierarchy: Optional[Hierarchy] = None,
             prepped = [_prep_level(lev, n_sh) for lev in hierarchy.levels]
         levels = tuple(p[0] for p in prepped)
         # the one build-time sync: every level's estimate read back at once
+        # analysis: allow(sync-host-sync): build time, once: the estimates
         rhos = torch.stack([p[2] for p in prepped]).tolist() if prepped \
             else []
         level_meta = tuple(p[1]._replace(rho=float(r))

@@ -228,7 +228,9 @@ def harmonic_interpolate(graph: Union[Graph, DeviceGraph], boundary,
                        torch.as_tensor(r, dtype=torch.float32,
                                        device=dg.device),
                        inner, maxiter)
+            # analysis: allow(sync-host-sync): the f64 refinement's read-back
             c += res.x.cpu().numpy().astype(np.float64)
+            # analysis: allow(sync-host-sync): the same read-back, a pass
             iters += res.iters.cpu().numpy().astype(np.int64)
         relres = np.linalg.norm(b64 - A64(c), axis=0) / bn
         sp.set(iters=int(iters.max(initial=0)), passes=passes,

@@ -7,8 +7,10 @@ with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
-One test here runs on the CPU as well: the port and ``chip_smoke.py``
-import neither ``jax`` nor the JAX package ``repro``.
+Two tests here run on the CPU as well: the port and ``chip_smoke.py``
+import neither ``jax`` nor the JAX package ``repro``, and
+``chip_smoke.py`` takes its kernel bounds from
+``repro_torch.launch.roofline`` and computes none inline.
 """
 import ast
 import functools
@@ -36,6 +38,10 @@ from repro_torch.solver import (SolveRequest, SolverService,  # noqa: E402
                                 build_hierarchy, ell_laplacian, make_solver)
 from repro_torch.solver.hierarchy import aggregate_csr  # noqa: E402
 from repro_torch.solver.sharded import shard_ell_slabs  # noqa: E402
+
+from repro_torch.analysis import cuda_check, dispatch_audit  # noqa: E402
+from repro_torch.analysis.findings import SEV_ERROR  # noqa: E402
+from repro_torch.analysis.registry import HOT_ENTRIES  # noqa: E402
 
 from _k4_layouts import K4_LAYOUTS, k4_layout  # noqa: E402
 
@@ -664,3 +670,70 @@ def test_port_and_chip_smoke_import_no_jax():
     roots = {n.split(".")[0] for n in names}
     assert not roots & {"jax", "jaxlib", "repro"}, roots
     assert "repro_torch" in roots
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", HOT_ENTRIES, ids=lambda e: e.name)
+def test_gpu_registry_entry_audits_clean(cuda, entry):
+    """Each hot entry on the card, under the dispatch mode and the CUDA
+    sync debug mode: no unallowed transfer, float64 or structure finding;
+    a PCG entry syncs once every 8 trips."""
+    rep = dispatch_audit.audit_entry(entry, cuda)
+    assert rep.findings == [], [f.format() for f in rep.findings]
+    if entry.trips_arg is not None:
+        assert rep.transfers_per_trip == 1 / 8
+    if entry.name == "batched_pcg":
+        # the trip caps' copy to the card (seen by the sync warnings'
+        # hook alone), the trip cap read once, and the designated test at
+        # 8 and 16 of the 16 trips
+        assert rep.transfers == 4
+
+
+@pytest.mark.gpu
+def test_gpu_audit_sees_a_host_to_device_copy(cuda):
+    """A positive control of the sync warnings' hook: a host-to-device
+    copy that the dispatch mode does not see is a host transfer."""
+    rep = dispatch_audit.audit_callable(
+        "planted_h2d", lambda x: x + torch.tensor(1.0, device=cuda),
+        (torch.ones(4, device=cuda),))
+    assert [f.rule for f in rep.findings] == ["audit-host-transfer"]
+    assert "a CUDA sync warning" in rep.findings[0].message
+
+
+@pytest.mark.gpu
+def test_gpu_cuda_check_over_the_built_library(cuda):
+    """The ptxas rules over the log of the library built here, the launch
+    limits and the shard layout: no error finding, every kernel read."""
+    report = cuda_check.check_suite(device=cuda)
+    assert [f.format() for f in report.findings
+            if f.severity == SEV_ERROR] == []
+    assert report.not_run == []
+    kernels = report.kernels
+    names = {k.name for k in kernels}
+    assert {"spmv_ell_batched_kernel", "cheby_step_kernel",
+            "restrict_residual_any", "restrict_residual_vec",
+            "spmv_ell_kernel", "stream_kernel", "rows_kernel",
+            "ssm_scan_kernel"} <= names
+    assert all(k.registers > 0 for k in kernels)
+
+
+def test_chip_smoke_takes_its_bounds_from_the_roofline_module():
+    """``chip_smoke.py`` imports ``repro_torch.launch.roofline`` and
+    defines no bound or peak of its own: no ``bound_ms``/``k4_bound``
+    function, no HBM or FLOP/s constant."""
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        src = f.read()
+    tree = ast.parse(src)
+    imported = {(node.module, a.name) for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom)
+                for a in node.names}
+    assert ("repro_torch.launch", "roofline") in imported
+    defs = {node.name for node in ast.walk(tree)
+            if isinstance(node, ast.FunctionDef)}
+    assert not defs & {"bound_ms", "k4_bound"}
+    assigned = {t.id for node in ast.walk(tree)
+                if isinstance(node, ast.Assign) for t in node.targets
+                if isinstance(t, ast.Name)}
+    assert not {n for n in assigned if "HBM" in n or "FLOPS" in n}
+    assert "3.35e12" not in src and "67e12" not in src

@@ -1,0 +1,116 @@
+"""The port's roofline module (``repro_torch.launch.roofline``) against the
+reference's (``repro.launch.roofline``), and its launch bounds against
+the numbers ``chip_smoke.py`` printed before they moved there.
+
+* Each reference byte/flop model gives the same integer in the port, on a
+  few shapes.  (``hierarchy_level_triples`` and ``hierarchy_level_shapes``
+  are held to the reference's in ``tests/test_torch_solver.py``, over the
+  hierarchies that file builds in both packages, mesh2d(12, 12) among
+  them.)
+* The launch bounds reproduce, to the last digit, the bounds of the
+  kernel records of a chip run of ``chip_smoke.py`` made while the
+  formulas were still inline there (H100 80GB HBM3, 700 W): K1 at the
+  top matvec and at a shard's shape, K2 and K3 at level 0, K5, K6 and its
+  exponentials' term.  K4's counting is held to a hand count.
+* The H100's peaks are the ones the bounds use.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.launch import roofline as jroof
+from repro_torch.launch import roofline as roof
+
+SHAPES = [(1, 1, 1), (31, 3, 1), (1000, 7, 8), (2 ** 20, 7, 8),
+          (131_072, 12, 16), (2 ** 30, 17, 16)]
+
+
+@pytest.mark.parametrize("n,L,k", SHAPES)
+def test_work_models_equal_the_reference(n, L, k):
+    assert roof.ell_spmv_bytes(n, L, k) == jroof.ell_spmv_bytes(n, L, k)
+    assert roof.ell_spmv_bytes(n, L, k, 2, 8) == \
+        jroof.ell_spmv_bytes(n, L, k, 2, 8)
+    assert roof.ell_spmv_flops(n, L, k) == jroof.ell_spmv_flops(n, L, k)
+    for guess in (False, True):
+        assert roof.fused_smoother_bytes(n, L, k, 2, with_guess=guess) == \
+            jroof.fused_smoother_bytes(n, L, k, 2, with_guess=guess)
+    nc = max(1, n // 3)
+    assert roof.fused_restrict_residual_bytes(n, L, k, nc) == \
+        jroof.fused_restrict_residual_bytes(n, L, k, nc)
+    shapes = [(n, L), (max(1, n // 2), L + 1)]
+    triples = [(n, L, nc), (nc, L + 1, max(1, nc // 2))]
+    for degree in (2, 3):
+        assert roof.vcycle_bytes(shapes, k, degree) == \
+            jroof.vcycle_bytes(shapes, k, degree)
+        assert roof.vcycle_bytes_fused(triples, k, degree) == \
+            jroof.vcycle_bytes_fused(triples, k, degree)
+    # the fused V-cycle moves fewer bytes than the unfused one
+    assert roof.vcycle_bytes_fused(triples, k) < \
+        roof.vcycle_bytes([t[:2] for t in triples], k)
+
+
+def test_achieved_bandwidth_uses_the_h100_rate():
+    assert roof.HBM_BW == 3.35e12 and roof.F32_FLOPS == 67e12
+    got = roof.achieved_bandwidth(3.35e9, 2e-3)
+    assert got == {"bytes_per_s": 3.35e9 / 2e-3, "frac_of_hbm": 0.5}
+    assert roof.achieved_bandwidth(1.0, 0.0) == \
+        jroof.achieved_bandwidth(1.0, 0.0)
+
+
+# (launch, arguments, bound_ms, bound_by): the kernel records of a chip
+# run of chip_smoke.py on the main path (n = 2^20, L = 7, k = 8)
+GOLDEN = [
+    ("spmv_batched_launch", (2 ** 20, 7, 8), 0.03756093134328358),
+    ("spmv_batched_launch", (131_072, 7, 8, 133_120), 0.004714679402985074),
+    ("cheby_step_launch", (2 ** 20, 7, 8), 0.06886170746268656),
+    ("restrict_residual_launch", (2 ** 20, 7, 8, 397_553),
+     0.043085174925373136),
+    ("spmv_launch", (2 ** 20, 7), 0.020032496716417908),
+    ("ssm_scan_launch", (4, 2048, 8192, 16, 2, 2), 0.16182501253731343),
+]
+
+
+@pytest.mark.parametrize("launch,args,want", GOLDEN,
+                         ids=[f"{g[0]}{g[1]}" for g in GOLDEN])
+def test_launch_bounds_are_the_printed_ones(launch, args, want):
+    nbytes, ops = getattr(roof, launch)(*args)
+    assert roof.bound_ms(nbytes, ops) == (want, "bytes")
+
+
+def test_launch_bounds_count_x_once_where_the_model_counts_gathers():
+    n, L, k = 2 ** 20, 7, 8
+    nbytes, ops = roof.spmv_batched_launch(n, L, k)
+    assert nbytes == n * L * 8 + 2 * n * k * 4
+    assert ops == roof.ell_spmv_flops(n, L, k)
+    # the reference's model gathers a k-wide row of x per stored entry
+    assert roof.ell_spmv_bytes(n, L, k) - nbytes == (n * L * k - n * k) * 4
+
+
+def test_ssm_scan_terms():
+    nbytes, ops = roof.ssm_scan_launch(4, 2048, 8192, 16, 2, 2)
+    assert nbytes == 542_113_792
+    assert ops == 6 * 1_073_741_824 + 4 * 2048 * 8192
+    assert round(roof.ssm_scan_expf_ms(4, 2048, 8192, 16, 1980.0), 4) == \
+        0.2568
+    # operations bound a launch whose bytes are few
+    assert roof.bound_ms(1.0, 67e9) == (1.0, "operations")
+
+
+def test_similarity_mark_launch_counts_by_hand():
+    """Two subtasks: 0 (rows 0-2) with one recovered candidate of beta 1,
+    1 (rows 3-4) with one unrecovered candidate; c1 = 3."""
+    c1 = 3
+    csu = torch.zeros((2, c1), dtype=torch.int32)
+    csv = torch.zeros((2, c1), dtype=torch.int32)
+    cbeta = torch.tensor([1, -1], dtype=torch.int32)
+    cseg = torch.tensor([0, 1], dtype=torch.int32)
+    eseg = torch.tensor([0, 0, 0, 1, 1], dtype=torch.int32)
+    esu = torch.zeros((5, c1), dtype=torch.int32)
+    nbytes, ops, sig_rows, cells = roof.similarity_mark_launch(
+        (csu, csv, cbeta, cseg, esu, esu, eseg))
+    assert sig_rows == 3                 # subtask 0's rows only
+    pairs = sum(1 for a in range(c1) for b in range(c1) if a + b <= 1)
+    assert cells == 3 * pairs            # 3 rows x candidate 0's pairs
+    assert nbytes == 5 * 5 + 3 * 2 * c1 * 4 + 2 * (2 * c1 * 4 + 8)
+    assert ops == 4.0 * cells
+    assert np.isfinite(roof.bound_ms(nbytes, ops)[0])

@@ -12,6 +12,9 @@
     port's ``"ref"`` route (+-0 iterations, bitwise x).
   * the batched-columns property (a column solved in a batch equals it
     solved alone, +-0 iterations), asserted on the port by itself.
+  * the roofline's level shapes (``hierarchy_level_triples``,
+    ``hierarchy_level_shapes``) of the port's hierarchy equal the
+    reference's of its own.
 Graphs: the tiny suite plus mesh2d(12, 12); both packages on the CPU.
 """
 import inspect
@@ -24,11 +27,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import graph as jgraph  # noqa: E402
+from repro.launch import roofline as jroof  # noqa: E402
 from repro.pipeline import pdgrass_config as jconfig  # noqa: E402
 from repro.solver import device_pcg as jpcg  # noqa: E402
 from repro.solver import hierarchy as jhier  # noqa: E402
 from repro_torch.core import graph as tgraph  # noqa: E402
 from repro_torch.launch import make_mesh  # noqa: E402
+from repro_torch.launch import roofline as troof  # noqa: E402
 from repro_torch.pipeline import pdgrass_config as tconfig  # noqa: E402
 from repro_torch.solver import device_pcg as tpcg  # noqa: E402
 from repro_torch.solver import hierarchy as thier  # noqa: E402
@@ -115,6 +120,26 @@ def test_hierarchy_agg_and_sizes_bit_identical(hierarchies, name):
         # the K3 CSR lists each aggregate's members in ascending order
         members = tl.perm.numpy()[tl.agg_ptr.numpy()[:-1]]
         assert np.all(tl.agg.numpy()[members] == np.arange(tl.n_coarse))
+
+
+@pytest.mark.parametrize("name,coarse_n",
+                         [(n, None) for n in NAMES] + [("mesh12", 16)])
+def test_hierarchy_level_triples_equal_the_reference(hierarchies, name,
+                                                     coarse_n):
+    if coarse_n is None:
+        jh, th = hierarchies[name]
+    else:       # mesh2d(12, 12) down to 16 vertices: several levels
+        jh = jhier.build_hierarchy(JG[name], coarse_n=coarse_n,
+                                   config=jconfig(alpha=0.05, chunk=256))
+        th = thier.build_hierarchy(TG[name], coarse_n=coarse_n,
+                                   config=tconfig(alpha=0.05, chunk=256),
+                                   device="cpu")
+        assert len(th.levels) >= 2
+    triples = troof.hierarchy_level_triples(th)
+    assert triples == jroof.hierarchy_level_triples(jh)
+    assert troof.hierarchy_level_shapes(th) == \
+        jroof.hierarchy_level_shapes(jh)
+    assert triples and all(isinstance(v, int) for t in triples for v in t)
 
 
 def test_host_contraction_matches_device():
