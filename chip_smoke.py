@@ -107,6 +107,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      atol = 2e-2 (the bar of the reference's prefill-vs-decode test, at
      its depth; bf16 at 64 layers is printed, see PERF.md), and the 2-layer
      model on the card against the CPU (plain scan) within 2e-2;
+  7b. the attention families, each served as phase 7 serves falcon-mamba
+     (random weights from ``torch.Generator("cuda")`` seed 0, the same
+     requests twice) and freed before the next: hymba-1.5b (hybrid, 32
+     layers, 1,611,368,000 parameters; K6 32 times a ``generate``),
+     qwen3-4b (36 layers, 4,022,795,776), gemma2-2b (26 layers,
+     2,614,341,888; softcaps, sandwich norms, local/global layers) and
+     starcoder2-15b cut to 8 of its 40 layers at full width (3,674,314,752;
+     untied head, gelu); the dense models launch no kernel.  For each, a
+     64-token prompt's prefill against 64 decode steps, float32 compute
+     at full depth within 1e-4 (gemma2-2b 5e-4: its sandwich norms, see
+     ``ATTENTION_LMS``) and bf16 on the first 2 layers within 2e-2 *
+     sqrt(d_model / 64) (the reference test's bar carried from its width,
+     64; see the gate), bf16 at full depth printed; hymba and qwen3-4b on
+     2 layers card against CPU within the same bf16 bar; hymba's first 4
+     layers (window 1024 in
+     layer 1) in float32: a 2048-token prefill and 8 decode steps, each
+     against a token-by-token decode of the same 2056 tokens within 1e-4;
   8. each kernel timed at its path's shapes beside its plain version,
      its byte/operation bound and, for K1 and K5, ``torch.sparse.mm`` on a
      CSR copy of the operator; K2 and K3 also at every level's shapes
@@ -116,6 +133,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      build's launches recorded in phase 3's traced K4 build); K6 at layer
      0's prefill inputs as the
      path gives them (bf16, B and C strided views) and cast to float32,
+     and at hymba's layer 0 (phase 7b; the record's ``"hymba"``),
      with the exponentials' issue-rate term printed beside its bound; and
      the fused solve's device time a PCG trip (``torch.profiler`` over 30
      trips); K1 also at a shard's shape (shard 0 of the main operator's
@@ -136,13 +154,14 @@ phase 5's K4 route is counted and printed on its own), K5 over phase 6's
 kernel-route solve, K4 over phase 6b's two builds, K1-K3 over phase 6c's
 daemon replay, each spectral call of phase 6d on its own, K4 over each
 of phase 6e's two ``recover_mixed`` runs and K1 over its sharded solve,
-K6 over phase 7's first ``generate``.
+K6 over phase 7's first ``generate`` and over each phase 7b model's.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -1571,19 +1590,14 @@ def k6_edge_checks(torch, kops, ref):
     return n
 
 
-def lm_path(np, torch, kops):
-    """The LM serving path at full width: falcon-mamba-7b, all 64 layers,
-    random weights from a seed, ``Engine(batch=4)`` answering 4 greedy
-    requests of 2048, 1536, 1024 and 512 prompt tokens (left-padded to
-    S = 2048), 32 new tokens each, twice.  Returns the K6 launch count of
-    the first run and the inputs of its first K6 launch (layer 0)."""
-    import dataclasses
+LM_LENS, LM_NEW = (2048, 1536, 1024, 512), 32   # the serving requests
+LM_BF16 = dict(rtol=2e-2, atol=2e-2)   # the reference test's bar (2 layers)
+LM_F32 = dict(rtol=1e-4, atol=1e-4)    # float32 compute at full depth
 
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as mm
-    from repro_torch.serve import Engine, Request
 
-    cfg = get_config("falcon-mamba-7b")
+def lm_model(torch, mm, cfg, want_params, label="LM path"):
+    """``cfg``'s model on the card, random weights from
+    ``torch.Generator("cuda")`` seed 0; fails on another parameter count."""
     t0 = time.perf_counter()
     model = mm.init_params(
         cfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
@@ -1591,28 +1605,32 @@ def lm_path(np, torch, kops):
     init_s = time.perf_counter() - t0
     n_params = mm.param_count(model)
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    print(f"LM path: {cfg.name}, {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, d_inner {cfg.d_inner}, state {cfg.ssm_state}, "
-          f"vocab {mm.vocab_padded(cfg)}, {cfg.dtype} compute: {n_params} "
-          f"parameters, {w_bytes} weight bytes ({cfg.param_dtype}), init "
-          f"{init_s:.3f} s", flush=True)
-    if n_params != 7_006_326_784:
-        fail(f"falcon-mamba-7b has {n_params} parameters, want 7006326784")
+    ssm = (f", d_inner {cfg.d_inner}, state {cfg.ssm_state}"
+           if cfg.ssm_state else "")
+    attn = (f", heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, d_ff "
+            f"{cfg.d_ff} ({cfg.mlp_type}), kinds {cfg.layer_kinds()}"
+            if cfg.n_heads else "")
+    print(f"{label}: {cfg.name} ({cfg.family}), {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}{ssm}{attn}, vocab {mm.vocab_padded(cfg)}"
+          f"{'' if cfg.tie_embeddings else ', untied head'}, {cfg.dtype} "
+          f"compute: {n_params} parameters, {w_bytes} weight bytes "
+          f"({cfg.param_dtype}), init {init_s:.3f} s", flush=True)
+    if n_params != want_params:
+        fail(f"{cfg.name} has {n_params} parameters, want {want_params}")
+    return model
 
-    rng = np.random.default_rng(0)
-    lens, max_new = (2048, 1536, 1024, 512), 32
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
-    t0 = time.perf_counter()
-    eng = Engine(cfg, model, batch=4, cache_len=max(lens) + max_new,
-                 device="cuda")
-    torch.cuda.synchronize()
-    print(f"engine setup (weights cast once to {cfg.dtype}): "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
 
-    # time prefill and each decode step (the engine reads every step's
-    # ids back to the host, so steps do not overlap), check that their
-    # logits are finite, and keep the inputs of the first K6 launch
-    steps, first = [], []
+def lm_serve(np, torch, kops, mm, eng, cfg, prompts, label, first,
+             kernels=("ssm_scan",)):
+    """One ``generate`` of the requests, greedy, ``LM_NEW`` new tokens
+    each: prefill and each decode step timed (the engine reads every
+    step's ids back to the host, so steps do not overlap), their logits
+    checked finite, the ids in range, no kernel launched outside
+    ``kernels``; the inputs of the first K6 launch kept in ``first`` (if it
+    is empty).  Returns (ids, launch counts)."""
+    from repro_torch.serve import Request
+
+    steps = []
     prefill, decode_step, scan = mm.prefill, mm.decode_step, kops.ssm_scan
 
     def timed(fn, kind):
@@ -1633,51 +1651,142 @@ def lm_path(np, torch, kops):
                 device=a.device).copy_(a) for a in args])
         return scan(*args)
 
-    def serve(label):
-        steps.clear()
-        mm.prefill, mm.decode_step = (timed(prefill, "prefill"),
-                                      timed(decode_step, "decode"))
-        kops.ssm_scan = recording
-        try:
-            kops.reset_launches()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            out = eng.generate([Request(prompt=p, max_new=max_new)
-                                for p in prompts])
-            wall_s = time.perf_counter() - t0
-            launches = kops.launch_counts()
-        finally:
-            mm.prefill, mm.decode_step, kops.ssm_scan = (prefill,
-                                                         decode_step, scan)
-        pre = [ms for kind, ms, _ in steps if kind == "prefill"]
-        dec = [ms for kind, ms, _ in steps if kind == "decode"]
-        n_tok = sum(len(o) for o in out)
-        print(f"LM {label}: prefill {pre[0]:.2f} ms (B=4, S={max(lens)}), "
-              f"decode {np.mean(dec):.3f} ms a step (mean of {len(dec)}; "
-              f"min {min(dec):.3f}, max {max(dec):.3f}), {n_tok} tokens in "
-              f"{wall_s:.3f} s: {n_tok / wall_s:.2f} generated tokens/s "
-              f"({4 / (np.mean(dec) / 1e3):.2f} tokens/s over decode "
-              f"steps); peak memory {torch.cuda.max_memory_allocated()} "
-              f"bytes; K6 launches {launches['ssm_scan']}", flush=True)
-        if len(pre) != 1 or len(dec) != max_new - 1:
-            fail(f"LM {label}: {len(pre)} prefills and {len(dec)} decode "
-                 f"steps, want 1 and {max_new - 1}")
-        if not all(ok for _, _, ok in steps):
-            fail(f"LM {label}: non-finite logits")
-        if [len(o) for o in out] != [max_new] * 4 or any(
-                o.min() < 0 or o.max() >= cfg.vocab for o in out):
-            fail(f"LM {label}: ids out of [0, {cfg.vocab}) or of the wrong "
-                 f"count")
-        others = {k: v for k, v in launches.items() if v and k != "ssm_scan"}
-        if others:
-            fail(f"LM {label}: launched other kernels {others}")
-        return out, launches["ssm_scan"]
+    mm.prefill, mm.decode_step = (timed(prefill, "prefill"),
+                                  timed(decode_step, "decode"))
+    kops.ssm_scan = recording
+    try:
+        kops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = eng.generate([Request(prompt=p, max_new=LM_NEW)
+                            for p in prompts])
+        wall_s = time.perf_counter() - t0
+        launches = kops.launch_counts()
+    finally:
+        mm.prefill, mm.decode_step, kops.ssm_scan = (prefill, decode_step,
+                                                     scan)
+    pre = [ms for kind, ms, _ in steps if kind == "prefill"]
+    dec = [ms for kind, ms, _ in steps if kind == "decode"]
+    n_tok = sum(len(o) for o in out)
+    print(f"LM {label}: prefill {pre[0]:.2f} ms (B=4, S={max(LM_LENS)}), "
+          f"decode {np.mean(dec):.3f} ms a step (mean of {len(dec)}; "
+          f"min {min(dec):.3f}, max {max(dec):.3f}), {n_tok} tokens in "
+          f"{wall_s:.3f} s: {n_tok / wall_s:.2f} generated tokens/s "
+          f"({4 / (np.mean(dec) / 1e3):.2f} tokens/s over decode "
+          f"steps); peak memory {torch.cuda.max_memory_allocated()} "
+          f"bytes; K6 launches {launches['ssm_scan']}", flush=True)
+    if len(pre) != 1 or len(dec) != LM_NEW - 1:
+        fail(f"LM {label}: {len(pre)} prefills and {len(dec)} decode "
+             f"steps, want 1 and {LM_NEW - 1}")
+    if not all(ok for _, _, ok in steps):
+        fail(f"LM {label}: non-finite logits")
+    if [len(o) for o in out] != [LM_NEW] * 4 or any(
+            o.min() < 0 or o.max() >= cfg.vocab for o in out):
+        fail(f"LM {label}: ids out of [0, {cfg.vocab}) or of the wrong "
+             f"count")
+    others = {k: v for k, v in launches.items() if v and k not in kernels}
+    if others:
+        fail(f"LM {label}: launched other kernels {others}")
+    return out, launches
 
-    out1, k6_launches = serve("serve")
-    out2, _ = serve("serve again")
-    print(f"LM ids, request 0: {out1[0][:8].tolist()}...", flush=True)
+
+def lm_serve_twice(np, torch, kops, mm, eng, cfg, prompts, first,
+                   kernels=("ssm_scan",), label=""):
+    """Two ``generate`` runs of the same requests: the same ids.  Returns
+    the first run's launch counts."""
+    out1, launches = lm_serve(np, torch, kops, mm, eng, cfg, prompts,
+                              f"{label}serve", first, kernels)
+    out2, _ = lm_serve(np, torch, kops, mm, eng, cfg, prompts,
+                       f"{label}serve again", first, kernels)
+    print(f"LM {label}ids, request 0: {out1[0][:8].tolist()}...", flush=True)
     if not all(np.array_equal(a, b) for a, b in zip(out1, out2)):
-        fail("a second generate returned other ids")
+        fail(f"{label}a second generate returned other ids")
+    return launches
+
+
+def prefill_vs_decode(torch, mm, view, c, toks):
+    """``toks [1, S]``: prefill's logits against S decode steps from an
+    empty cache; printed, returned with the max abs error."""
+    S = toks.shape[1]
+    lp, _ = mm.prefill(view, c, toks, S)
+    caches = mm.init_cache(c, 1, S, device="cuda")
+    for t in range(S):
+        ld, caches = mm.decode_step(view, c, caches, toks[:, t:t + 1], t)
+    err = float((lp - ld).abs().max())
+    print(f"LM {c.name} prefill vs {S} decode steps, {c.n_layers} layers, "
+          f"{c.dtype}: max abs err {err:.4e}, logits max |.| "
+          f"{float(ld.abs().max()):.4f}", flush=True)
+    return lp, ld, err
+
+
+def first_layers(mm, model, cfg, n):
+    """The first ``n`` layers of ``model`` (its weights, not copies) with
+    the final norm and head: a model of ``cfg`` cut to ``n`` layers."""
+    cut = dataclasses.replace(cfg, n_layers=n)
+    sub = mm.LM(cut, device="meta")
+    keep = set(sub.state_dict())
+    sub.load_state_dict({k: v for k, v in model.state_dict().items()
+                         if k in keep}, assign=True)
+    return sub, cut
+
+
+def card_vs_cpu(torch, kops, mm, two, cfg2, toks, bar=LM_BF16["atol"]):
+    """The 2-layer model's prefill on the card (K6 in a Mamba layer) and
+    on the CPU (the plain scan), bf16: logits within ``bar`` (rtol and
+    atol)."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        view = mm.cast_for_compute(two, cfg2, device=dev)
+        kops.reset_launches()
+        t0 = time.perf_counter()
+        logits, caches = mm.prefill(view, cfg2, toks.to(dev), toks.shape[1])
+        out[dev] = (logits.cpu(), caches[1], kops.launch_counts(),
+                    time.perf_counter() - t0)
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    leaves = {k: float((v.cpu().float() - out["cpu"][1][k].float()).abs()
+                       .max()) for k, v in out["cuda"][1].items()}
+    k6 = (out["cuda"][2]["ssm_scan"], out["cpu"][2]["ssm_scan"])
+    print(f"LM {cfg2.name} 2 layers, card vs CPU ({toks.shape[1]} tokens): "
+          f"logits max abs err {err:.4e}, layer-1 cache max abs err "
+          + ", ".join(f"{k} {v:.4e}" for k, v in leaves.items())
+          + f"; K6 launches {k6[0]} / {k6[1]}; card {out['cuda'][3]:.3f} s, "
+          f"CPU {out['cpu'][3]:.3f} s", flush=True)
+    want = 2 if cfg2.ssm_state else 0
+    if k6 != (want, 0) or any(
+            v for d in ("cuda", "cpu") for k, v in out[d][2].items()
+            if k != "ssm_scan"):
+        fail(f"{cfg2.name}: the card did not run K6 in each Mamba layer "
+             f"alone, or the CPU ran a kernel")
+    if not torch.allclose(out["cuda"][0], out["cpu"][0], rtol=bar,
+                          atol=bar):
+        fail(f"{cfg2.name} 2-layer model: card and CPU logits part by "
+             f"{err:.3e}, bar {bar:.4f}")
+
+
+def lm_path(np, torch, kops):
+    """The LM serving path at full width: falcon-mamba-7b, all 64 layers,
+    random weights from a seed, ``Engine(batch=4)`` answering 4 greedy
+    requests of 2048, 1536, 1024 and 512 prompt tokens (left-padded to
+    S = 2048), 32 new tokens each, twice.  Returns the K6 launch count of
+    the first run and the inputs of its first K6 launch (layer 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as mm
+    from repro_torch.serve import Engine
+
+    cfg = get_config("falcon-mamba-7b")
+    model = lm_model(torch, mm, cfg, 7_006_326_784)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in LM_LENS]
+    t0 = time.perf_counter()
+    eng = Engine(cfg, model, batch=4, cache_len=max(LM_LENS) + LM_NEW,
+                 device="cuda")
+    torch.cuda.synchronize()
+    print(f"engine setup (weights cast once to {cfg.dtype}): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    first = []
+    launches = lm_serve_twice(np, torch, kops, mm, eng, cfg, prompts, first)
+    k6_launches = launches["ssm_scan"]
     if k6_launches != cfg.n_layers:
         fail(f"K6 launched {k6_launches} times over the LM path, want "
              f"{cfg.n_layers} (one a layer, in prefill)")
@@ -1687,60 +1796,162 @@ def lm_path(np, torch, kops):
     # depth (2 layers, below); bf16 at full depth is printed, not gated:
     # cuBLAS sums the 64-row and the 1-row products in other orders, and
     # bf16's 1-ULP partings grow over 64 layers (PERF.md, Findings)
-    bf16, f32 = dict(rtol=2e-2, atol=2e-2), dict(rtol=1e-4, atol=1e-4)
     toks = torch.as_tensor(prompts[3][:64][None], device="cuda")
-
-    def prefill_vs_decode(view, c):
-        lp, _ = mm.prefill(view, c, toks, 64)
-        caches = mm.init_cache(c, 1, 64, device="cuda")
-        for t in range(64):
-            ld, caches = mm.decode_step(view, c, caches, toks[:, t:t + 1], t)
-        err = float((lp - ld).abs().max())
-        print(f"LM prefill vs 64 decode steps, {c.n_layers} layers, "
-              f"{c.dtype}: max abs err {err:.4e}, logits max |.| "
-              f"{float(ld.abs().max()):.4f}", flush=True)
-        return lp, ld, err
-
-    prefill_vs_decode(eng.params, cfg)
+    prefill_vs_decode(torch, mm, eng.params, cfg, toks)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    lp, ld, err = prefill_vs_decode(mm.cast_for_compute(model, cfg32), cfg32)
-    if not torch.allclose(lp, ld, **f32):
+    lp, ld, err = prefill_vs_decode(
+        torch, mm, mm.cast_for_compute(model, cfg32), cfg32, toks)
+    if not torch.allclose(lp, ld, **LM_F32):
         fail(f"full-width float32 prefill and decode part: max abs err "
              f"{err:.3e}")
 
     # two layers of the same weights on the card (K6) and on the CPU
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
-    two = mm.MambaLM(cfg2, device="meta")
-    keep = set(two.state_dict())
-    two.load_state_dict({k: v for k, v in model.state_dict().items()
-                         if k in keep}, assign=True)
+    two, cfg2 = first_layers(mm, model, cfg, 2)
     del eng, model
     torch.cuda.empty_cache()
-    out = {}
-    lp, ld, err = prefill_vs_decode(mm.cast_for_compute(two, cfg2), cfg2)
-    if not torch.allclose(lp, ld, **bf16):
+    lp, ld, err = prefill_vs_decode(torch, mm, mm.cast_for_compute(two, cfg2),
+                                    cfg2, toks)
+    if not torch.allclose(lp, ld, **LM_BF16):
         fail(f"2-layer bf16 prefill and decode part: max abs err {err:.3e}")
-    for dev in ("cuda", "cpu"):
-        view = mm.cast_for_compute(two, cfg2, device=dev)
-        kops.reset_launches()
-        t0 = time.perf_counter()
-        logits, caches = mm.prefill(view, cfg2, toks.to(dev), 64)
-        out[dev] = (logits.cpu(), caches[1]["h"].cpu(),
-                    kops.launch_counts()["ssm_scan"],
-                    time.perf_counter() - t0)
-    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
-    herr = float((out["cuda"][1] - out["cpu"][1]).abs().max())
-    print(f"LM 2 layers, card vs CPU (64 tokens): logits max abs err "
-          f"{err:.4e}, layer-1 h max abs err {herr:.4e}; K6 launches "
-          f"{out['cuda'][2]} / {out['cpu'][2]}; card {out['cuda'][3]:.3f} s, "
-          f"CPU {out['cpu'][3]:.3f} s", flush=True)
-    if out["cuda"][2] != 2 or out["cpu"][2] != 0:
-        fail("the card did not run K6 in each layer, or the CPU did")
-    if not torch.allclose(out["cuda"][0], out["cpu"][0], **bf16):
-        fail(f"2-layer model: card and CPU logits part by {err:.3e}")
+    card_vs_cpu(torch, kops, mm, two, cfg2, toks)
     del two
     torch.cuda.empty_cache()
     return k6_launches, first[0]
+
+
+# phase 7b: (config, layers kept (None: all), parameters, card against
+# CPU, the float32 prefill-vs-decode bar at full depth).  gemma2-2b's
+# sandwich norms scale every branch's output to RMS 2 (the attention's
+# from about 0.18, the MLP's from 0.68), so the residual is 52 branch
+# outputs at full weight, each with its products' rounding: its float32
+# gap grows with depth (1.75e-5, 4.9e-5, 1.49e-4 at 2, 8, 26 layers) and
+# falls to 5.0e-6 at 26 layers with those norms left out (PERF.md,
+# Findings; tools/lm_probe.py --sandwich-off)
+ATTENTION_LMS = (("hymba-1.5b", None, 1_611_368_000, True, 1e-4),
+                 ("qwen3-4b", None, 4_022_795_776, True, 1e-4),
+                 ("gemma2-2b", None, 2_614_341_888, False, 5e-4),
+                 ("starcoder2-15b", 8, 3_674_314_752, False, 1e-4))
+WINDOW_STEPS = 8   # decode steps past a 2048-token prefill, hymba cut to 4
+
+
+def rolling_window(np, torch, mm, model, cfg, rng):
+    """hymba's first 4 layers (kinds 0, 1, 0, 0: window 1024 in layer 1) in
+    float32: a 2048-token prefill, then ``WINDOW_STEPS`` decode steps, each
+    step's logits against a token-by-token decode of the same tokens from
+    an empty cache, within 1e-4; both caches' windowed layer must have
+    evicted every position older than the window."""
+    four, c4 = first_layers(mm, model, cfg, 4)
+    c4 = dataclasses.replace(c4, dtype="float32")
+    if c4.layer_kinds() != (0, 1, 0, 0) or c4.window != 1024:
+        fail(f"hymba cut to 4 layers has kinds {c4.layer_kinds()}, window "
+             f"{c4.window}")
+    view = mm.cast_for_compute(four, c4)
+    S, n = 2048, WINDOW_STEPS
+    toks = torch.as_tensor(rng.integers(0, c4.vocab, (1, S + n)),
+                           dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    _, caches = mm.prefill(view, c4, toks[:, :S], S + n)
+    after_prefill = []
+    for t in range(n):
+        logits, caches = mm.decode_step(view, c4, caches,
+                                        toks[:, S + t:S + t + 1], S + t)
+        after_prefill.append(logits)
+    slow = mm.init_cache(c4, 1, S + n, device="cuda")
+    errs = []
+    for t in range(S + n):
+        logits, slow = mm.decode_step(view, c4, slow, toks[:, t:t + 1], t)
+        if t >= S:
+            errs.append(float((logits - after_prefill[t - S]).abs().max()))
+            if not torch.allclose(logits, after_prefill[t - S], **LM_F32):
+                fail(f"hymba window: decode step {t - S + 1} after a "
+                     f"{S}-token prefill parts from the token-by-token "
+                     f"decode by {errs[-1]:.3e}")
+    torch.cuda.synchronize()
+    oldest = [int(c[1]["pos"].min()) for c in (caches, slow)]
+    C = caches[1]["k"].shape[1]
+    print(f"LM hymba window (4 layers, float32, window {c4.window}, layer-1 "
+          f"cache {C} slots): prefill {S} + {n} decode steps against {S + n} "
+          f"token-by-token steps: max abs err a step "
+          f"{[f'{e:.3e}' for e in errs]}; oldest position held in layer 1 "
+          f"{oldest} (want {S + n - C}); {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    if oldest != [S + n - C] * 2:
+        fail(f"hymba window: layer 1 holds positions from {oldest}, want "
+             f"{S + n - C}")
+
+
+def attention_lm_path(np, torch, kops):
+    """Phase 7b, the attention families at full width: hymba-1.5b,
+    qwen3-4b and gemma2-2b at full depth and starcoder2-15b (untied head,
+    gelu) cut to 8 of its 40 layers, each served as phase 7 serves
+    falcon-mamba-7b, its prefill against decode, and (hymba, qwen3-4b) its
+    first 2 layers on the card against the CPU; hymba's rolling window.
+    Returns hymba's K6 launches and the inputs of its first K6 launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as mm
+    from repro_torch.serve import Engine
+
+    hymba = None
+    for name, n_layers, want, on_cpu, f32_bar in ATTENTION_LMS:
+        t_model = time.perf_counter()
+        cfg = get_config(name)
+        if n_layers:
+            print(f"{name}: cut to {n_layers} of its {cfg.n_layers} layers, "
+                  f"full width (the whole model's float32 weights and their "
+                  f"bf16 cast do not fit in the card's memory)", flush=True)
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        model = lm_model(torch, mm, cfg, want, label="LM path 7b")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, k).astype(np.int32)
+                   for k in LM_LENS]
+        eng = Engine(cfg, model, batch=4, cache_len=max(LM_LENS) + LM_NEW,
+                     device="cuda")
+        hybrid = cfg.family == "hybrid"
+        first = []   # the inputs of hymba's first K6 launch
+        launches = lm_serve_twice(
+            np, torch, kops, mm, eng, cfg, prompts, first,
+            kernels=("ssm_scan",) if hybrid else (), label=f"{name} ")
+        if launches["ssm_scan"] != (cfg.n_layers if hybrid else 0):
+            fail(f"{name}: K6 launched {launches['ssm_scan']} times a "
+                 f"generate, want {cfg.n_layers if hybrid else 0}")
+        if hybrid:
+            hymba = (launches["ssm_scan"], first[0])
+
+        toks = torch.as_tensor(prompts[3][:64][None], device="cuda")
+        # bf16 at full depth printed; float32 at full depth gated
+        prefill_vs_decode(torch, mm, eng.params, cfg, toks)
+        del eng
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        lp, ld, err = prefill_vs_decode(
+            torch, mm, mm.cast_for_compute(model, cfg32), cfg32, toks)
+        if not torch.allclose(lp, ld, rtol=f32_bar, atol=f32_bar):
+            fail(f"{name}: float32 prefill and decode part at full depth: "
+                 f"max abs err {err:.3e}, bar {f32_bar:.0e}")
+        two, cfg2 = first_layers(mm, model, cfg, 2)
+        lp, ld, err = prefill_vs_decode(
+            torch, mm, mm.cast_for_compute(two, cfg2), cfg2, toks)
+        # the reference test's 2e-2 holds at reduced()'s width, 64; a
+        # logit's bf16 rounding error grows as sqrt(d_model)
+        # (tools/lm_witness.py bf16-gap: the gap over sqrt(d/64) is 5.9e-3
+        # to 7.8e-3 at d = 64 to 1600), and at hymba's full width the
+        # reference itself parts by 3.7e-2 on 2 layers (PERF.md, Findings);
+        # the same bar holds the card against the CPU, whose products sum
+        # in other orders
+        bar = LM_BF16["atol"] * np.sqrt(cfg.d_model / 64)
+        print(f"LM {name} 2-layer bf16 bar: {bar:.4f} (2e-2 * sqrt("
+              f"{cfg.d_model} / 64))", flush=True)
+        if not torch.allclose(lp, ld, rtol=bar, atol=bar):
+            fail(f"{name}: 2-layer bf16 prefill and decode part: max abs "
+                 f"err {err:.3e}, bar {bar:.4f}")
+        if on_cpu:
+            card_vs_cpu(torch, kops, mm, two, cfg2, toks, bar)
+        if hybrid:
+            rolling_window(np, torch, mm, model, cfg, rng)
+        del model, two
+        torch.cuda.empty_cache()
+        print(f"phase 7b {name}: {time.perf_counter() - t_model:.3f} s",
+              flush=True)
+    return hymba
 
 
 def k6_record(torch, kops, ref, args, launches, card_clock_mhz):
@@ -1999,6 +2210,10 @@ def main() -> int:
     k6_launches, k6_args = lm_path(np, torch, kops)
     phase_done("lm_path")
 
+    # ---- phase 7b: the attention families (hybrid, dense) ----------------
+    k6_hymba_launches, k6_hymba_args = attention_lm_path(np, torch, kops)
+    phase_done("attention_lm_path")
+
     # ---- phase 8: kernels at their paths' shapes -------------------------
     records = kernel_records(torch, vf, ref, hier, idx, val, counts)
     device_ops = trip_profile(torch, solver, b_dev)
@@ -2009,8 +2224,14 @@ def main() -> int:
     by_name["spmv_ell_batched"]["sharded"] = k1_shard_record(
         torch, vf, ref, idx, val, k1_sharded)
     by_name["similarity_mark"]["sharded"] = {"launches": k4_sharded}
-    records.append(k6_record(torch, kops, ref, k6_args, k6_launches,
-                             max_sm_clock_mhz()))
+    clock = max_sm_clock_mhz()
+    k6 = k6_record(torch, kops, ref, k6_args, k6_launches, clock)
+    hymba = k6_record(torch, kops, ref, k6_hymba_args, k6_hymba_launches,
+                      clock)
+    k6["hymba"] = {k: hymba[k] for k in (
+        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    records.append(k6)
     phase_done("kernel_timing")
 
     # ---- phase 9: the analysis checkers on the card ----------------------

@@ -1,10 +1,14 @@
-"""Model layers of the port: the Mamba1 (selective SSM) block.
+"""Model layers of the port: norms, rope, attention, MLPs and Mamba1.
 
-The port of the Mamba section of ``repro.models.layers`` (with the
-``rmsnorm`` it needs): pure functions over a dict of one layer's weights,
-as the reference's, and :class:`MambaMixer`, the ``nn.Module`` that holds
-them.  Attention, MLP and MoE layers are not ported yet (ROADMAP queue 1,
-item 10).
+The port of ``repro.models.layers`` for the ``ssm``, ``hybrid`` and
+``dense`` families: pure functions over a dict of one layer's weights, as
+the reference's, and the ``nn.Module``s that hold them (:class:`Attention`,
+:class:`MLP`, :class:`MambaMixer`).  MoE, cross- and encoder attention and
+the training forward are not ported yet (ROADMAP queue 1, item 1).
+
+Attention is plain PyTorch: the reference computes it outside any Pallas
+kernel, and its online softmax over blocks rounds otherwise than one
+``scaled_dot_product_attention`` call would.
 
 Arithmetic follows the reference as its serving path runs it.  Its
 prefill runs eagerly, so each bf16 operation rounds its result to bf16, as
@@ -16,6 +20,8 @@ float32 (excess precision), where it is exact.  So :func:`_ssm_step` casts
 exact in float32, and the CPU scan equals K6 bit for bit.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +51,162 @@ def softplus(x):
     """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it,
     ``logaddexp(x, 0)`` (``F.softplus`` takes another formula)."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def rope(x, positions, theta: float):
+    """x: [..., S, H, hd]; positions: [..., S] int.  Angles in float32;
+    a bf16 ``x`` times the float32 ``cos`` is float32, cast back last."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = positions[..., :, None].float() * freqs       # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]               # [..., S, 1, half]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _qkv(x, p, cfg: ModelConfig):
+    """x [B,S,d] -> q [B,S,H,hd], k/v [B,S,KV,hd] (pre-rope)."""
+    B, S, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"].to(x.dtype).reshape(d, H * hd)).view(B, S, H, hd)
+    k = (x @ p["wk"].to(x.dtype).reshape(d, KV * hd)).view(B, S, KV, hd)
+    v = (x @ p["wv"].to(x.dtype).reshape(d, KV * hd)).view(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def repeat_kv(k, rep: int):
+    """[B,S,KV,hd] -> [B,S,KV*rep,hd]; head ``h`` is kv head ``h // rep``."""
+    if rep == 1:
+        return k
+    B, S, KV, hd = k.shape
+    return k[:, :, :, None, :].expand(B, S, KV, rep, hd).reshape(
+        B, S, KV * rep, hd)
+
+
+def _mask(qp, kp, kind: int, window):
+    """[qb, cb] bool: causal, within the window for kind 1, all for kind 2."""
+    if kind == 2:                 # bidirectional (encoder)
+        return torch.ones((qp.shape[0], kp.shape[0]), dtype=torch.bool,
+                          device=qp.device)
+    mask = kp[None, :] <= qp[:, None]
+    if kind == 1:
+        mask = mask & ((qp[:, None] - kp[None, :]) < (window or (1 << 30)))
+    return mask
+
+
+def blockwise_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, kind: int,
+                        q_block: int = 512, kv_block: int = 1024):
+    """Online-softmax attention over ``q_block`` x ``kv_block`` tiles, the
+    kv blocks in ascending order; never materialises [Sq, Sk].
+
+    q [B,Sq,H,hd]; k/v [B,Sk,KV,hd]; kind: 0 global-causal, 1 windowed,
+    2 bidirectional.  Returns [B, Sq, H*hd] in ``q.dtype``.  Masked scores
+    are -1e30 and the running max starts at -inf, as in the reference: a
+    window row whose first kv block is all masked carries ``exp(0)`` terms
+    until the next block's correction ``exp(m - m_new) = 0`` clears them.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    k = repeat_kv(k, H // KV)
+    v = repeat_kv(v, H // KV)
+    scale = 1.0 / math.sqrt(hd)
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Sk)
+    assert Sq % q_block == 0 and Sk % kv_block == 0
+    # [B, H, S, hd]: the score and value products as batched matmuls
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    outs = []
+    for q0 in range(0, Sq, q_block):
+        qb = qh[:, :, q0:q0 + q_block]
+        qpb = q_pos[q0:q0 + q_block]
+        m = torch.full((B, H, q_block), -torch.inf, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, q_block), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, H, q_block, hd), dtype=q.dtype,
+                          device=q.device)
+        for k0 in range(0, Sk, kv_block):
+            kb = kh[:, :, k0:k0 + kv_block]
+            vb = vh[:, :, k0:k0 + kv_block]
+            s = (qb @ kb.transpose(-1, -2)).float()       # [B,H,qb,cb]
+            s = softcap(s * scale, cfg.attn_softcap)
+            mask = _mask(qpb, k_pos[k0:k0 + kv_block], kind, cfg.window)
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p_ = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p_.sum(-1)
+            pv = p_.to(vb.dtype) @ vb
+            acc = acc * corr[..., None].to(acc.dtype) + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
+        outs.append(out.transpose(1, 2).reshape(B, q_block, H * hd))
+    return torch.cat(outs, dim=1)
+
+
+def attention_decode(x, p, cfg: ModelConfig, kind: int, cache_k, cache_v,
+                     cache_pos, pos: int):
+    """Single-token decode.  x [B,1,d]; caches [B,C,KV,hd]; ``pos`` int.
+
+    Rolling buffer: the new K/V lands at slot ``pos % C``, written into the
+    caches in place (they are returned too); masking is by the absolute
+    positions in ``cache_pos`` [B, C] (-1 = empty).  Works for full caches
+    (C = max_len) and windowed ones (C = window)."""
+    B, C = cache_k.shape[0], cache_k.shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rep = H // KV
+    q, k, v = _qkv(x, p, cfg)
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k = rope(k, posv, cfg.rope_theta)
+    slot = pos % C
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
+    cache_pos[:, slot] = pos
+
+    qh = q.reshape(B, KV, rep, hd)
+    s = torch.einsum("bkrh,bckh->bkrc", qh, cache_k).float()
+    s = softcap(s / math.sqrt(hd), cfg.attn_softcap)
+    valid = (cache_pos >= 0) & (cache_pos <= pos)
+    if kind == 1:
+        valid = valid & ((pos - cache_pos) < (cfg.window or (1 << 30)))
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkrc,bckh->bkrh", w.to(cache_v.dtype), cache_v)
+    out = o.reshape(B, 1, H * hd) @ p["wo"].to(x.dtype)
+    return out, cache_k, cache_v, cache_pos
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def _gelu(x):
+    # jax.nn.gelu's default is the tanh approximation; F.gelu's is not
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(x, p, cfg: ModelConfig):
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["w1"].to(x.dtype)) * (x @ p["w3"].to(x.dtype))
+    elif cfg.mlp_type == "geglu":   # gemma2
+        h = _gelu(x @ p["w1"].to(x.dtype)) * (x @ p["w3"].to(x.dtype))
+    elif cfg.mlp_type == "gelu":
+        h = _gelu(x @ p["w1"].to(x.dtype))
+    else:
+        raise ValueError(cfg.mlp_type)
+    return h @ p["w2"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -139,20 +301,14 @@ def mamba_block(x, p, cfg: ModelConfig, h0=None, conv_buf=None,
     return y @ p["out_proj"].to(x.dtype), h, window[:, 1:]
 
 
-class MambaMixer(nn.Module):
-    """One Mamba1 block's weights (the reference's ``layers.ssm`` leaves of
-    one layer, same names and shapes, float32) and :func:`mamba_block`
-    over them.  :func:`repro_torch.models.model.init_params` fills them."""
+class _Weights(nn.Module):
+    """One layer's weights of one kind, float32 leaves named and shaped as
+    the reference's; :func:`repro_torch.models.model.init_params` or
+    :func:`~repro_torch.models.weights.params_from_reference` fill them."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, shapes: dict, device=None):
         super().__init__()
         self.cfg = cfg
-        d, di, st, r, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
-                           cfg.dt_rank, cfg.ssm_conv)
-        shapes = {"in_proj": (d, 2 * di), "conv_w": (di, k), "conv_b": (di,),
-                  "x_proj": (di, r + 2 * st), "dt_proj": (r, di),
-                  "dt_bias": (di,), "A_log": (di, st), "D": (di,),
-                  "out_proj": (di, d)}
         for name, shape in shapes.items():
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, dtype=torch.float32, device=device),
@@ -160,6 +316,49 @@ class MambaMixer(nn.Module):
 
     def weights(self) -> dict:
         return dict(self.named_parameters(recurse=False))
+
+
+class Attention(_Weights):
+    """The reference's ``layers.attn`` leaves of one layer: ``wq [d, H,
+    hd]``, ``wk``/``wv [d, KV, hd]``, ``wo [H*hd, d]``, and ``q_norm``/
+    ``k_norm [hd]`` with qk-norm."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        shapes = {"wq": (d, H, hd), "wk": (d, KV, hd), "wv": (d, KV, hd),
+                  "wo": (H * hd, d)}
+        if cfg.qk_norm:
+            shapes.update(q_norm=(hd,), k_norm=(hd,))
+        super().__init__(cfg, shapes, device)
+
+
+class MLP(_Weights):
+    """The reference's ``layers.mlp`` leaves: ``w1 [d, ff]``, ``w3 [d, ff]``
+    (swiglu, geglu), ``w2 [ff, d]``; :func:`mlp` over them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        d, ff = cfg.d_model, cfg.d_ff
+        shapes = {"w1": (d, ff), "w2": (ff, d)}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            shapes["w3"] = (d, ff)
+        super().__init__(cfg, shapes, device)
+
+    def forward(self, x):
+        return mlp(x, self.weights(), self.cfg)
+
+
+class MambaMixer(_Weights):
+    """One Mamba1 block's weights (the reference's ``layers.ssm`` leaves of
+    one layer) and :func:`mamba_block` over them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        d, di, st, r, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                           cfg.dt_rank, cfg.ssm_conv)
+        super().__init__(cfg, {
+            "in_proj": (d, 2 * di), "conv_w": (di, k), "conv_b": (di,),
+            "x_proj": (di, r + 2 * st), "dt_proj": (r, di),
+            "dt_bias": (di,), "A_log": (di, st), "D": (di,),
+            "out_proj": (di, d)}, device)
 
     def forward(self, x, h0=None, conv_buf=None, decode: bool = False):
         return mamba_block(x, self.weights(), self.cfg, h0=h0,

@@ -4,7 +4,9 @@ The port of ``repro.serve.engine``.  Requests fill the engine's batch
 (left-padded to the longest prompt), prefill runs the full-sequence layers
 and fills each layer's cache, and ``decode_step`` advances every slot one
 token per tick, greedily or by seeded sampling (``np.random.default_rng``).
-On the card each Mamba layer's prefill scan is kernel K6.
+It serves every family the port has (``ssm``, ``hybrid``, ``dense``).  On
+the card each Mamba layer's prefill scan is kernel K6; attention and the
+MLPs are plain PyTorch.
 
 The engine casts each weight once to the dtype its use casts it to
 (:func:`~repro_torch.models.model.cast_for_compute`), which gives the same

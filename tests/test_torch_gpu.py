@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K6 against their plain PyTorch versions, and the
-port's service, sharded planes and LM serving path, on the card.
+port's service, sharded planes and LM serving paths (ssm, hybrid, dense),
+on the card.
 
 Every ``gpu``-marked test needs a CUDA device and skips without one
 (decided in a fixture).  The file imports no JAX, so it runs on a machine
@@ -573,6 +574,55 @@ def test_gpu_reduced_model_matches_cpu(cuda, dtype):
     for a, b in zip(out["cuda"][1] + out["cuda"][2],
                     out["cpu"][1] + out["cpu"][2]):
         torch.testing.assert_close(a, b, **tol)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen3-4b", "gemma2-2b"])
+def test_gpu_attention_families_match_cpu(cuda, arch, dtype):
+    """Reduced hymba (4 layers: a windowed layer), qwen3-4b and gemma2-2b,
+    the same weights on the card and on the CPU: prefill logits and every
+    cache leaf, then two decode steps, within the float32 bar (1e-5) or
+    the bf16 bar (2e-2).  On the card hymba launches K6 once a layer in
+    prefill and nothing else; a dense model launches no kernel at all."""
+    import dataclasses
+
+    cfg = reduced(get_config(arch))
+    if arch == "hymba-1.5b":
+        cfg = dataclasses.replace(cfg, n_layers=4)
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    host = tmodel.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (3, 34)), dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = tmodel.cast_for_compute(host, cfg, device=dev)
+        kops.reset_launches()
+        logits, caches = tmodel.prefill(model, cfg, toks[:, :32].to(dev), 40)
+        launched = kops.launch_counts()
+        steps = [logits]
+        for t in range(2):
+            logits, caches = tmodel.decode_step(
+                model, cfg, caches, toks[:, 32 + t:33 + t].to(dev), 32 + t)
+            steps.append(logits)
+        out[str(dev)] = (launched, [s.cpu() for s in steps],
+                         [{k: v.cpu() for k, v in c.items()} for c in caches])
+    assert not any(out["cpu"][0].values())
+    want = cfg.n_layers if cfg.family == "hybrid" else 0
+    assert out["cuda"][0] == dict.fromkeys(out["cuda"][0], 0) | {
+        "ssm_scan": want}
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, **tol)
+    for ca, cb in zip(out["cuda"][2], out["cpu"][2]):
+        assert set(ca) == set(cb)
+        for name in ca:
+            if name == "pos":
+                assert torch.equal(ca[name], cb[name])
+            else:
+                torch.testing.assert_close(ca[name], cb[name], **tol)
+
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_sh", [1, 8])

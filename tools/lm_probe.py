@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Probe the port's LM serving path (falcon-mamba-7b) on one NVIDIA GPU.
+"""Probe the port's LM serving path on one NVIDIA GPU.
 
-    python3 tools/lm_probe.py
+    python3 tools/lm_probe.py                       # falcon-mamba-7b
+    python3 tools/lm_probe.py --arch gemma2-2b --depths 2,8,26 \
+        --sandwich-off --no-profile
 
 Needs a CUDA device; exits non-zero without one.  Builds the full-width
-model as ``chip_smoke.py`` does (``init_params``, ``torch.Generator("cuda")``
-seed 0) and prints:
+model of ``--arch`` as ``chip_smoke.py`` does (``init_params``,
+``torch.Generator("cuda")`` seed 0) and prints:
 
   1. prefill against step-by-step decode on one 64-token prompt, for the
-     first 2, 16 and 64 layers of those weights, in bf16 and in float32
+     first ``--depths`` layers of those weights, in bf16 and in float32
      compute: the max abs error, the largest logit, and the worst ratio of
      the error to the bar ``atol + rtol * |decode logit|`` at the bf16 bar
-     (2e-2) and at the float32 bar (1e-5);
-  2. ``torch.profiler`` traces of one prefill of the engine's padded
-     batch (4 prompts of 2048, 1536, 1024 and 512 tokens) and of three
-     decode steps: device time by kernel, device ops a step, and the
-     device's busy share of the step's wall time.
+     (2e-2) and at the float32 bar (1e-5); with ``--sandwich-off`` (a
+     config with sandwich norms) the same weights again without the
+     post-norms, and the RMS of the residual and of each branch's output
+     before and after its post-norm at a few layers of a float32 prefill;
+  2. unless ``--no-profile``, ``torch.profiler`` traces of one prefill of
+     the engine's padded batch (4 prompts of 2048, 1536, 1024 and 512
+     tokens) and of three decode steps: device time by kernel, device ops
+     a step, and the device's busy share of the step's wall time.
 """
+import argparse
 import dataclasses
 import os
 import subprocess
@@ -27,7 +33,51 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 
+def first_layers(mm, state, cfg):
+    """The model of ``cfg`` over the leaves of ``state`` it names."""
+    sub = mm.LM(cfg, device="meta")
+    keep = set(sub.state_dict())
+    sub.load_state_dict({k: v for k, v in state.items() if k in keep},
+                        assign=True)
+    return sub
+
+
+def branch_rms(mm, model, cfg, toks, layers):
+    """The RMS of the residual and of each branch's output before and after
+    its post-norm, at ``layers`` of a float32 prefill of ``toks``."""
+    import torch
+    from repro_torch.models import layers as L
+
+    c = dataclasses.replace(cfg, dtype="float32")
+    view = mm.cast_for_compute(model, c)
+    x = mm.embed_tokens(view, c, toks)
+    pos = torch.arange(toks.shape[1], device=toks.device)
+
+    def rms(t):
+        return float(t.pow(2).mean().sqrt())
+
+    for i, (layer, kind) in enumerate(zip(view.layers, c.layer_kinds())):
+        p = layer.attn.weights()
+        q, k, v = L._qkv(mm._norm(x, layer.ln1, c), p, c)
+        q, k = L.rope(q, pos, c.rope_theta), L.rope(k, pos, c.rope_theta)
+        o = L.blockwise_attention(q, k, v, pos, pos, c, kind) @ p["wo"]
+        on = mm._norm(o, layer.ln1_post, c, post=True)
+        m = layer.mlp(mm._norm(x + on, layer.ln2, c))
+        mn = mm._norm(m, layer.ln2_post, c, post=True)
+        if i in layers:
+            print(f"layer {i}: residual RMS {rms(x):.3f}, attention out RMS "
+                  f"{rms(o):.4f} -> post-normed {rms(on):.3f}, MLP out RMS "
+                  f"{rms(m):.4f} -> post-normed {rms(mn):.3f}", flush=True)
+        x = x + on + mn
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="falcon-mamba-7b")
+    ap.add_argument("--depths", default="2,16,64")
+    ap.add_argument("--sandwich-off", action="store_true")
+    ap.add_argument("--no-profile", action="store_true")
+    args = ap.parse_args()
     import numpy as np
     import torch
 
@@ -43,7 +93,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"nvidia-smi: {card}", flush=True)
-    cfg = get_config("falcon-mamba-7b")
+    cfg = get_config(args.arch)
     model = mm.init_params(
         cfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
     rng = np.random.default_rng(0)
@@ -53,30 +103,36 @@ def main() -> int:
 
     # ---- 1. prefill against decode, by depth and compute type ----------
     state = model.state_dict()
-    for depth in (2, 16, 64):
-        for dtype in ("bfloat16", "float32"):
-            c = dataclasses.replace(cfg, n_layers=depth, dtype=dtype)
-            sub = mm.MambaLM(c, device="meta")
-            keep = set(sub.state_dict())
-            sub.load_state_dict({k: v for k, v in state.items() if k in keep},
-                                assign=True)
-            view = mm.cast_for_compute(sub, c)
-            lp, _ = mm.prefill(view, c, toks, 64)
-            caches = mm.init_cache(c, 1, 64, device="cuda")
-            for t in range(64):
-                ld, caches = mm.decode_step(view, c, caches,
-                                            toks[:, t:t + 1], t)
-            err = (lp - ld).abs()
-            ratios = {bar: float((err / (bar + bar * ld.abs())).max())
-                      for bar in (2e-2, 1e-5)}
-            print(f"prefill vs decode, {depth} layers, {dtype}: max abs err "
-                  f"{float(err.max()):.4e}, max |logit| "
-                  f"{float(ld.abs().max()):.4f}, worst err/bar at 2e-2 "
-                  f"{ratios[2e-2]:.4f}, at 1e-5 {ratios[1e-5]:.4f}",
-                  flush=True)
-            del view, sub, caches
+    variants = [cfg.sandwich_norm] + ([False] if args.sandwich_off else [])
+    for sandwich in variants:
+        for depth in (int(d) for d in args.depths.split(",")):
+            for dtype in ("bfloat16", "float32"):
+                c = dataclasses.replace(cfg, n_layers=depth, dtype=dtype,
+                                        sandwich_norm=sandwich)
+                view = mm.cast_for_compute(first_layers(mm, state, c), c)
+                lp, _ = mm.prefill(view, c, toks, 64)
+                caches = mm.init_cache(c, 1, 64, device="cuda")
+                for t in range(64):
+                    ld, caches = mm.decode_step(view, c, caches,
+                                                toks[:, t:t + 1], t)
+                err = (lp - ld).abs()
+                ratios = {bar: float((err / (bar + bar * ld.abs())).max())
+                          for bar in (2e-2, 1e-5)}
+                print(f"prefill vs decode, {cfg.name}, {depth} layers, "
+                      f"{dtype}, sandwich norms {sandwich}: max abs err "
+                      f"{float(err.max()):.4e}, max |logit| "
+                      f"{float(ld.abs().max()):.4f}, worst err/bar at 2e-2 "
+                      f"{ratios[2e-2]:.4f}, at 1e-5 {ratios[1e-5]:.4f}",
+                      flush=True)
+                del view, caches
+    if args.sandwich_off and cfg.sandwich_norm:
+        branch_rms(mm, model, cfg, toks, {0, 1, cfg.n_layers // 2,
+                                          cfg.n_layers - 1})
     del state
     torch.cuda.empty_cache()
+    if args.no_profile:
+        print(f"nvidia-smi: {card}")
+        return 0
 
     # ---- 2. where the serving time goes -------------------------------
     from torch.profiler import ProfilerActivity, profile
