@@ -8,10 +8,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   1. build the CUDA kernels K1-K6 from ``src/repro_torch/kernels/csrc``;
   2. hold each kernel against its plain PyTorch version on the card at
      edge sizes (n = 31, 100, 257; k = 1, 3, 8, 16; x with more rows than
-     the slab for K1): K1 and K3 bitwise, K3 also on a hub aggregate of 64
-     members, slab widths 3, 12 and 17 and a single aggregate; K2 within
-     rtol 1e-5 and atol 1e-5 * max|input| (it rounds every operation on
-     its own, so it is expected bitwise too); K4 bitwise on the reference
+     the slab for K1): K1, K2 and K3 bitwise, K3 also on a hub aggregate
+     of 64 members, slab widths 3, 12 and 17 and a single aggregate; K2's
+     step and its two sweep launches (zero start, prolongation step) on
+     one aggregate and on ragged ones, and its factory at degrees 2 and 3
+     against the plain smoother; K4 bitwise on the reference
      test's (K, m, c1) cases, 12 seeded ones and the layouts of
      ``tests/_k4_layouts.py`` (32 subtasks in one warp, 128 candidates in
      one subtask of 600 rows, K = 1, 129 and 300, m = 1 and ragged, c1 =
@@ -26,7 +27,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      round at every level: the count must equal the rounds summed over the
      levels), then ``make_solver(matvec_impl="fused")`` and one solve of 8
      right-hand sides (tol 1e-3, maxiter 2000), with every kernel's launch
-     count read over that run.  tol 1e-3 is the tightest power of ten the
+     count read over that run; K2's launches must be exactly one
+     zero-start sweep, one prolongation step and one later step a level
+     and V-cycle.  tol 1e-3 is the tightest power of ten the
      float32 PCG reaches on all 8 columns at this size; the JAX reference
      misses tighter targets too (``tools/tol_witness.py`` and PERF.md).
      Two more builds of the same graph with the tracer on print the
@@ -127,7 +130,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   8. each kernel timed at its path's shapes beside its plain version,
      its byte/operation bound and, for K1 and K5, ``torch.sparse.mm`` on a
      CSR copy of the operator; K2 and K3 also at every level's shapes
-     (time, bound, launches a level; K3 bitwise); K4 at the K4 path's first
+     (time, bound, launches a level, bitwise; K2 each launch against its
+     own bound and each sweep, the post-smooth with the prolongation,
+     against the sweep's; the launch-weighted gap both ways); K4 at the
+     K4 path's first
      launch and summed over all of that path's launches and over all of
      the main-path build's (device time against the summed bound; the
      build's launches recorded in phase 3's traced K4 build); K6 at layer
@@ -136,9 +142,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      and at hymba's layer 0 (phase 7b; the record's ``"hymba"``),
      with the exponentials' issue-rate term printed beside its bound; and
      the fused solve's device time a PCG trip (``torch.profiler`` over 30
-     trips); K1 also at a shard's shape (shard 0 of the main operator's
-     8-shard split, on its halo-extended x, k = 8), and the K1 and K4
-     records carry the sharded paths' launches (``"sharded"``).
+     trips; no gather kernel may run in it: the prolongation is K2's);
+     K1 also at a shard's shape (shard 0 of the main operator's 8-shard
+     split, on its halo-extended x, k = 8), and the K1 and K4 records
+     carry the sharded paths' launches (``"sharded"``).
   9. the analysis checkers on the card: ``cuda_check`` over the library
      this run built (every kernel's registers, static shared memory and
      spills from its ptxas log; the launch limits of the suite's and the
@@ -218,14 +225,6 @@ def time_ms(torch, fn, reps: int = 20, queued: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def check_close(torch, name, got, want, scale):
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    tol = 1e-5 * float(want.abs().max()) + 1e-5 * scale
-    if not torch.isfinite(got).all() or err > tol:
-        fail(f"{name}: max abs err {err:.3e} > {tol:.3e}")
-    return err
 
 
 @contextlib.contextmanager
@@ -332,16 +331,16 @@ def edge_checks(torch, vf, ref):
             r = torch.randn((n, k), generator=gen, device=dev)
             z = torch.randn((n, k), generator=gen, device=dev)
             p0 = torch.randn((n, k), generator=gen, device=dev)
-            scale = max(float(r.abs().max()), float(z.abs().max()),
-                        float(val.abs().max()))
             for first, zp in ((True, None), (True, z), (False, z)):
                 kw = dict(first=first, theta=1.37, c1=0.61, c2=0.93)
                 p_k, z_k = vf.cheby_step(idx_sq, val, inv_d, r, zp, p0.clone(),
                                          torch.empty_like(r), **kw)
                 p_r, z_r = ref.cheby_step_ref(idx_sq, val, inv_d, r, zp,
                                               p0.clone(), **kw)
-                check_close(torch, f"K2 p n={n} k={k}", p_k, p_r, scale)
-                check_close(torch, f"K2 z n={n} k={k}", z_k, z_r, scale)
+                if not (torch.equal(p_k, p_r) and torch.equal(z_k, z_r)):
+                    fail(f"K2's step not bitwise equal at n={n} k={k} "
+                         f"first={first} warm={zp is not None}")
+            k2_sweep_checks(torch, vf, ref, gen, idx_sq, val, inv_d, r, z)
             nc = max(1, n // 3)
             agg = torch.randint(0, nc, (n,), generator=gen, device=dev,
                                 dtype=torch.int32)
@@ -384,6 +383,54 @@ def edge_checks(torch, vf, ref):
             n_checked += 1
     torch.cuda.synchronize()
     return n_checked
+
+
+def k2_sweep_checks(torch, vf, ref, gen, idx, val, inv_d, r, z):
+    """K2's sweep launches bitwise against their plain versions at one
+    edge size, on one aggregate and on ragged ones: the zero start with and
+    without p written, the prolongation step with and without the
+    prolongation; then the factory at degrees 2 and 3 against the plain
+    smoother from zero and from ``z + zc[agg]``."""
+    from repro_torch.solver.device_pcg import (make_chebyshev_smoother,
+                                               make_matvec)
+
+    n, k = r.shape
+    args = (idx, val, inv_d, r)
+    kw = dict(theta=1.37, c1=0.61, c2=0.93)
+    where = f"at n={n} k={k}"
+
+    def same(got, want, want_p, name):
+        if not (torch.equal(got[1], want[1])
+                and (not want_p or torch.equal(got[0], want[0]))):
+            fail(f"K2's {name} not bitwise equal to its plain version "
+                 f"{where}")
+
+    for nc in (1, max(2, n // 3)):
+        agg = torch.randint(0, nc, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        agg[:nc] = torch.arange(nc, device="cuda", dtype=torch.int32)
+        zc = torch.randn((nc, k), generator=gen, device="cuda")
+        where = f"at n={n} k={k} with {nc} aggregates"
+        for want_p in (False, True):
+            same(vf.cheby_smooth_zero(*args, want_p=want_p, **kw),
+                 ref.cheby_smooth_zero_ref(*args, **kw), want_p,
+                 "zero-start launch")
+        for zc_agg in ((None, None), (zc, agg)):
+            same(vf.cheby_prolong_step(*args, z, *zc_agg, theta=kw["theta"]),
+                 ref.cheby_prolong_step_ref(*args, z, *zc_agg,
+                                            theta=kw["theta"]),
+                 True, "prolongation step")
+        diag = 1.0 / inv_d
+        for degree in (2, 3):
+            plain = make_chebyshev_smoother(make_matvec(idx, val, "ref"),
+                                            diag, 1.9, degree=degree)
+            want_zero, want_warm = plain(r), plain(r, z + zc[agg.long()])
+            smooth = vf.make_fused_chebyshev(idx, val, diag, 1.9,
+                                             degree=degree, agg=agg)
+            if not (torch.equal(smooth(r), want_zero)
+                    and torch.equal(smooth(r, z, zc), want_warm)):
+                fail(f"K2's degree-{degree} sweep not bitwise equal to the "
+                     f"plain smoother {where}")
 
 
 def sim_problem(np, torch, rng, K, m, c1, n_seg=5, sort=False):
@@ -739,9 +786,12 @@ def daemon_path(np, torch, g, disk, kops):
                  f"{len(rep.latencies_ms)} of {n} requests resolved")
     if not stats["cycles"] < 16:
         fail(f"the daemon ran {stats['cycles']} cycles for 16 requests")
-    for name in ("spmv_ell_batched", "cheby_step", "restrict_residual"):
+    for name in ("spmv_ell_batched", "cheby_smooth_zero",
+                 "restrict_residual"):
         if counts[name] <= 0:
             fail(f"the daemon's flushes did not launch {name}")
+    if counts["cheby_prolong_step"] <= 0:
+        fail("the daemon's flushes launched no warm-start sweep of K2")
     bitwise = True
     for i, (td, ts) in enumerate(zip(on_daemon.tickets, on_sync.tickets)):
         rd, rs = td.result(), ts.result()
@@ -1225,10 +1275,31 @@ def k45_records(np, torch, kops, ref, k4_runs, main_k4_runs, k4_launches,
     return [rec4, rec5]
 
 
-def kernel_records(torch, vf, ref, hier, idx, val, counts):
+K2_KERNELS = ("cheby_smooth_zero", "cheby_prolong_step", "cheby_step")
+
+
+def k2_launch_gate(counts, levels):
+    """K2's launches over the main path's solve, by kernel: at every one of
+    the ``levels`` levels every V-cycle (one restriction a level) launches
+    one zero-start sweep, one prolongation step and one later step, and
+    nothing else.  Fails on any other count; returns the V-cycles."""
+    cycles, rest = divmod(counts["restrict_residual"], levels)
+    want = dict.fromkeys(K2_KERNELS, cycles * levels)
+    got = {k: counts[k] for k in K2_KERNELS}
+    if rest or cycles <= 0 or got != want:
+        fail(f"K2 launched {got} over the main path's "
+             f"{counts['restrict_residual']} restrictions on {levels} "
+             f"levels; want {want}")
+    return cycles
+
+
+def kernel_records(torch, vf, ref, hier, idx, val, counts, msolve,
+                   k2_cycles):
     """Each kernel at the main path's shapes: error against its plain
     version, device ms beside the plain version's, its bound and (K1) the
-    ``torch.sparse.mm`` yardstick."""
+    ``torch.sparse.mm`` yardstick.  ``msolve`` is the main path's V-cycle
+    (each level's rho) and ``k2_cycles`` its V-cycles, each of which
+    launches each K2 kernel once a level (:func:`k2_launch_gate`)."""
     from repro_torch.launch import roofline as rf
 
     lev = hier.levels[0]
@@ -1263,55 +1334,128 @@ def kernel_records(torch, vf, ref, hier, idx, val, counts):
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(torch, lambda: torch.sparse.mm(A, x))))
 
-    # K2: one recurrence step with its matvec, on level 0 (the record) and
-    # on every level, with its launches a level
-    kw = dict(first=False, theta=1.37, c1=0.61, c2=0.93)
-    k2_levels = []
+    # K2: both sweeps of a V-cycle at every level, as the V-cycle runs them
+    # (the factory's closure with the solver's rho and the level's agg),
+    # each bitwise against its plain version; device ms of each sweep and
+    # of each of its launches, each against its bound
+    k2_levels, err2 = [], 0.0
     for i, lv in enumerate(hier.levels):
         ln, lL = lv.idx.shape
-        lr, lz, lp = (torch.randn((ln, K), generator=gen, device="cuda")
-                      for _ in range(3))
+        lnc = lv.n_coarse
+        lr, lz = ((r, z) if i == 0 else
+                  (torch.randn((ln, K), generator=gen, device="cuda")
+                   for _ in range(2)))
+        lzc = torch.randn((lnc, K), generator=gen, device="cuda")
         linv = 1.0 / lv.diag
-        lout = torch.empty_like(lr)
-        bms, by = rf.bound_ms(*rf.cheby_step_launch(ln, lL, K))
-        k2_levels.append(dict(level=i, n=ln, L=lL, ms=time_ms(
-            torch, lambda: vf.cheby_step(lv.idx, lv.val, linv, lr, lz, lp,
-                                         lout, **kw)),
-            bound_ms=bms, bound_by=by))
-    # every V-cycle smooths twice on every level, degree 2: 4 steps
-    per_level, rest = divmod(counts["cheby_step"], len(k2_levels))
-    if rest:
-        fail(f"K2 launched {counts['cheby_step']} times over "
-             f"{len(k2_levels)} levels")
-    gap = 0.0
+        theta, delta, sigma = vf.cheby_coeffs(msolve.rhos[i])
+        ((c1, c2),) = vf.cheby_step_coeffs(delta, sigma, 2)
+        smooth = vf.make_fused_chebyshev(lv.idx, lv.val, lv.diag,
+                                         msolve.rhos[i], degree=2,
+                                         agg=lv.agg)
+        args2 = (lv.idx, lv.val, linv, lr)
+        step_kw = dict(first=False, theta=theta, c1=c1, c2=c2)
+        want_pre = ref.cheby_smooth_zero_ref(*args2, theta=theta, c1=c1,
+                                             c2=c2)[1]
+        p1, z1 = ref.cheby_prolong_step_ref(*args2, lz, lzc, lv.agg,
+                                            theta=theta)
+        want_post = ref.cheby_step_ref(*args2, z1, p1, **step_kw)[1]
+        p1k, z1k = vf.cheby_prolong_step(*args2, lz, lzc, lv.agg,
+                                         theta=theta)
+        for what, got, want in (
+                ("pre-smooth", smooth(lr), want_pre),
+                ("prolongation step", torch.cat([p1k, z1k]),
+                 torch.cat([p1, z1])),
+                ("post-smooth", smooth(lr, lz, lzc), want_post)):
+            err = float((got - want).abs().max())
+            if not torch.equal(got, want):
+                fail(f"K2's {what} at level {i} is not bitwise equal to its "
+                     f"plain version (max abs err {err:.3e})")
+            err2 = max(err2, err)
+        pre_b, by = rf.bound_ms(*rf.cheby_smooth_zero_launch(ln, lL, K))
+        prolong_b = rf.bound_ms(*rf.cheby_prolong_step_launch(ln, lL, K,
+                                                              lnc))[0]
+        step_b = rf.bound_ms(*rf.cheby_step_launch(ln, lL, K))[0]
+        post_b, by_post = rf.bound_ms(*rf.cheby_post_smooth_sweep(
+            ln, lL, K, lnc))
+        p_buf, z_buf = p1k.clone(), torch.empty_like(lr)
+        k2_levels.append(dict(
+            level=i, n=ln, L=lL, n_coarse=lnc,
+            pre_ms=time_ms(torch, lambda: smooth(lr)), pre_bound_ms=pre_b,
+            prolong_ms=time_ms(torch, lambda: vf.cheby_prolong_step(
+                *args2, lz, lzc, lv.agg, theta=theta)),
+            prolong_bound_ms=prolong_b,
+            step_ms=time_ms(torch, lambda: vf.cheby_step(
+                *args2, z1k, p_buf, z_buf, **step_kw)),
+            step_bound_ms=step_b,
+            post_ms=time_ms(torch, lambda: smooth(lr, lz, lzc)),
+            post_bound_ms=post_b,
+            bound_by=by if by == by_post else f"{by}/{by_post}",
+            launches=dict.fromkeys(K2_KERNELS, k2_cycles)))
+        if i == 0:
+            def plain_post():
+                p, zs = ref.cheby_prolong_step_ref(*args2, lz, lzc, lv.agg,
+                                                   theta=theta)
+                return ref.cheby_step_ref(*args2, zs, p, **step_kw)
+
+            plain2 = (time_ms(torch, lambda: ref.cheby_smooth_zero_ref(
+                *args2, theta=theta, c1=c1, c2=c2))
+                + time_ms(torch, plain_post))
+    # the launch-weighted gap, V-cycles * (ms - bound) summed over levels:
+    # each launch against its own bound (as K1 and K3 are ranked), and each
+    # sweep against the sweep's bound (its inputs read once, z written)
+    gap_launch = k2_cycles * sum(
+        row[f"{u}_ms"] - row[f"{u}_bound_ms"]
+        for row in k2_levels for u in ("pre", "prolong", "step"))
+    gap_sweep = k2_cycles * sum(
+        row[f"{u}_ms"] - row[f"{u}_bound_ms"]
+        for row in k2_levels for u in ("pre", "post"))
     for row in k2_levels:
-        row["launches"] = per_level
-        gap += per_level * (row["ms"] - row["bound_ms"])
         print(f"K2 level: {json.dumps(row)}", flush=True)
-    print(f"K2 over all levels: {per_level} launches a level, "
-          f"{sum(row['ms'] for row in k2_levels):.4f} ms a step on every "
-          f"level (bound {sum(row['bound_ms'] for row in k2_levels):.4f} ms);"
-          f" launch-weighted gap sum(launches * (ms - bound)) {gap:.3f} ms a "
-          f"solve", flush=True)
+    print(f"K2 over all levels: "
+          f"{sum(r['pre_ms'] + r['post_ms'] for r in k2_levels):.4f} ms of "
+          f"sweeps a V-cycle (bound "
+          f"{sum(r['pre_bound_ms'] + r['post_bound_ms'] for r in k2_levels):.4f}"
+          f" ms); launch-weighted gap sum(V-cycles * (ms - bound)) "
+          f"{gap_launch:.3f} ms a solve by launch, {gap_sweep:.3f} ms by "
+          f"sweep", flush=True)
+    # K2's later-step kernel (the post-smooth's second launch) at level 0,
+    # against its plain version, on the fixed coefficients of phase 2
+    kw = dict(first=False, theta=1.37, c1=0.61, c2=0.93)
     pk, zk = vf.cheby_step(lev.idx, lev.val, inv_d, r, z, p0.clone(),
                            torch.empty_like(r), **kw)
     pr, zr = ref.cheby_step_ref(lev.idx, lev.val, inv_d, r, z, p0.clone(),
                                 **kw)
-    err2 = max(float((pk - pr).abs().max()), float((zk - zr).abs().max()))
-    check_close(torch, "K2 main-path p", pk, pr, float(r.abs().max()))
-    check_close(torch, "K2 main-path z", zk, zr, float(r.abs().max()))
+    if not (torch.equal(pk, pr) and torch.equal(zk, zr)):
+        fail("K2's step is not bitwise equal to its plain version at level 0")
     p_buf, z_out = p0.clone(), torch.empty_like(r)
-    bms, by = rf.bound_ms(*rf.cheby_step_launch(n, L, K))
-    records.append(dict(
-        name="cheby_step", route="cuda",
-        source="src/repro_torch/kernels/csrc/cheby_step.cu",
-        replaces="src/repro/kernels/vcycle_fused.py:160",
-        launches=counts["cheby_step"], max_abs_err=err2,
+    step = dict(
+        launches=counts["cheby_step"],
+        max_abs_err=max(float((pk - pr).abs().max()),
+                        float((zk - zr).abs().max())),
         ms=time_ms(torch, lambda: vf.cheby_step(
             lev.idx, lev.val, inv_d, r, z, p_buf, z_out, **kw)),
         plain_ms=time_ms(torch, lambda: ref.cheby_step_ref(
             lev.idx, lev.val, inv_d, r, z, p_buf, **kw)),
-        bound_ms=bms, bound_by=by, library_ms=None))
+        bound_ms=rf.bound_ms(*rf.cheby_step_launch(n, L, K))[0])
+    print(f"K2 step at level 0: {json.dumps(step)}", flush=True)
+    top = k2_levels[0]
+    records.append(dict(
+        name="cheby_smooth", route="cuda",
+        source="src/repro_torch/kernels/csrc/cheby_smooth.cu",
+        replaces="src/repro/kernels/vcycle_fused.py:160",
+        launches=sum(counts[k] for k in K2_KERNELS), max_abs_err=err2,
+        ms=top["pre_ms"] + top["post_ms"], plain_ms=plain2,
+        bound_ms=top["pre_bound_ms"] + top["post_bound_ms"],
+        bound_by=top["bound_by"], library_ms=None,
+        unit="level 0: a V-cycle's pre-smooth and post-smooth, the "
+             "prolongation included",
+        launches_by_kernel={k: counts[k] for k in K2_KERNELS},
+        gap_ms_by_launch=gap_launch, gap_ms_by_sweep=gap_sweep,
+        levels=[{k: row[k] for k in (
+            "level", "n", "pre_ms", "pre_bound_ms", "prolong_ms",
+            "prolong_bound_ms", "step_ms", "step_bound_ms", "post_ms",
+            "post_bound_ms", "launches")} for row in k2_levels],
+        step=dict(step, source="src/repro_torch/kernels/csrc/cheby_step.cu")))
 
     # K3: restrict + residual on every level, as the V-cycle runs it (the
     # factory's closure, over the level's aggregate-order slab copy); the
@@ -1412,10 +1556,12 @@ def k1_shard_record(torch, vf, ref, idx, val, launches):
     return row
 
 
-def trip_profile(torch, solver, b_dev, trips=30, label="fused solve"):
+def trip_profile(torch, solver, b_dev, trips=30, label="fused solve",
+                 gather_free=False):
     """A solve's wall and device time a PCG trip over ``trips`` trips
     (maxiter = trips, so every column runs them all): wall from an
-    unprofiled run, device time and kernel split from ``torch.profiler``."""
+    unprofiled run, device time and kernel split from ``torch.profiler``.
+    With ``gather_free`` it fails if any device op is a gather kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     solver(b_dev, tol=TOL, maxiter=trips)
@@ -1439,15 +1585,25 @@ def trip_profile(torch, solver, b_dev, trips=30, label="fused solve"):
     for e in evs:
         names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(names.values()) / 1e3 / trips
-    k3 = sum(us for name, us in names.items()
-             if "restrict_residual" in name) / 1e3 / trips
+    note = (" (213 before K2 took the prolongation, H100 80GB HBM3, "
+            "PERF.md §5)" if gather_free else "")
+
+    def ms_of(part):
+        return sum(us for name, us in names.items()
+                   if part in name) / 1e3 / trips
+
     top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
     print(f"{label}, {trips} trips: wall {wall_ms:.3f} ms a trip "
           f"(unprofiled), device busy {busy_ms:.4f} ms a trip (share "
-          f"{busy_ms / wall_ms:.3f}), of it K3 {k3:.4f} ms; "
-          f"{len(evs) / trips:.0f} device ops a trip; top: " + "; ".join(
+          f"{busy_ms / wall_ms:.3f}), of it K2 {ms_of('cheby'):.4f} ms, K3 "
+          f"{ms_of('restrict_residual'):.4f} ms, gather kernels "
+          f"{ms_of('gather'):.4f} ms; {len(evs) / trips:.0f} device ops a "
+          f"trip{note}; top: " + "; ".join(
               f"{name[:48]} {us / 1e3 / trips:.4f} ms" for name, us in top),
           flush=True)
+    if gather_free and ms_of("gather") > 0:
+        fail(f"the {label} launched a gather kernel: the V-cycle's "
+             f"prolongation belongs inside K2's post-smooth")
     return len(evs) / trips
 
 
@@ -2064,7 +2220,7 @@ def main() -> int:
     # ---- phase 2: kernels against their plain versions at edge sizes ------
     phase_done("build")
     n_checked = edge_checks(torch, vf, ref)
-    print(f"edge sizes: {n_checked} cases, K1 and K3 bitwise, K2 allclose",
+    print(f"edge sizes: {n_checked} cases, K1, K2 and K3 bitwise",
           flush=True)
     n_k4 = k45_edge_checks(np, torch, kops, ref)
     print(f"edge sizes: {n_k4} K4 cases bitwise, K5 bitwise at n = 31, 100, "
@@ -2102,8 +2258,8 @@ def main() -> int:
     solve_ms = (time.perf_counter() - t0) * 1e3
     # the kernels the main path runs (K5 and K6 have paths of their own)
     counts = {name: n for name, n in kops.launch_counts().items()
-              if name in ("spmv_ell_batched", "cheby_step",
-                          "restrict_residual", "similarity_mark")}
+              if name in ("spmv_ell_batched", "restrict_residual",
+                          "similarity_mark") + K2_KERNELS}
 
     # two traced builds give the per-stage seconds of each marking route;
     # the K4 build keeps every K4 launch's inputs for phase 8
@@ -2143,9 +2299,15 @@ def main() -> int:
         fail(f"not every column converged: relres {relres}")
     if not torch.isfinite(res.x).all() or tuple(res.x.shape) != (g.n, K):
         fail("solution is not finite or has the wrong shape")
-    for name, c in counts.items():
-        if c <= 0:
+    for name in ("spmv_ell_batched", "restrict_residual", "similarity_mark"):
+        if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    # K2: one pre-smooth launch and two post-smooth launches a level and
+    # V-cycle
+    k2_cycles = k2_launch_gate(counts, len(hier.levels))
+    print(f"K2 over {k2_cycles} V-cycles on {len(hier.levels)} levels: one "
+          f"zero-start sweep, one prolongation step and one later step a "
+          f"level and V-cycle", flush=True)
 
     # ---- phase 4: plain path on the same hierarchy; repeat run ----------
     solver_ref = make_solver(idx, val, hier, matvec_impl="ref",
@@ -2215,8 +2377,9 @@ def main() -> int:
     phase_done("attention_lm_path")
 
     # ---- phase 8: kernels at their paths' shapes -------------------------
-    records = kernel_records(torch, vf, ref, hier, idx, val, counts)
-    device_ops = trip_profile(torch, solver, b_dev)
+    records = kernel_records(torch, vf, ref, hier, idx, val, counts,
+                             solver.msolve, k2_cycles)
+    device_ops = trip_profile(torch, solver, b_dev, gather_free=True)
     records += k45_records(np, torch, kops, ref, k4_runs, main_k4_runs,
                            counts["similarity_mark"], idx, val, k5_launches)
     # the sharded paths of phase 6e: K1 at a shard's shape, K4's launches

@@ -64,12 +64,17 @@ DEFAULT_K = 16                       # the widest bucket the service warms
 
 CSRC = Path(__file__).resolve().parents[1] / "kernels" / "csrc"
 
-#: K1-K3: source, entry function, and its arguments from a level's
+#: K1-K3 (K2: its step and its two sweep launches): source, entry
+#: function, and its arguments from a level's
 #: ``(n, L, n_coarse)`` at ``k`` right-hand sides
 LAUNCH_SOURCES = (
     ("spmv_ell_batched.cu", "repro_spmv_ell_batched",
      lambda n, L, nc, k: {"n": n, "L": L, "k": k}),
     ("cheby_step.cu", "repro_cheby_step",
+     lambda n, L, nc, k: {"n": n, "L": L, "k": k}),
+    ("cheby_smooth.cu", "repro_cheby_smooth_zero",
+     lambda n, L, nc, k: {"n": n, "L": L, "k": k}),
+    ("cheby_smooth.cu", "repro_cheby_prolong_step",
      lambda n, L, nc, k: {"n": n, "L": L, "k": k}),
     ("restrict_residual.cu", "repro_restrict_residual",
      lambda n, L, nc, k: {"n_coarse": nc, "L": L, "k": k}),

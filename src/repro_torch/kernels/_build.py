@@ -36,6 +36,10 @@ SIGNATURES = {
     "repro_spmv_ell_batched": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_cheby_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                          _F, _F, _P],
+    "repro_cheby_smooth_zero": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                _F, _P],
+    "repro_cheby_prolong_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _F, _P],
     "repro_restrict_residual": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _P],
     "repro_similarity_mark": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

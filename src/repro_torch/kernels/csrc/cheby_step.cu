@@ -1,23 +1,23 @@
-// K2: one step of the fused Chebyshev smoother.
+// K2's later-step kernel: one step of the Chebyshev recurrence with its
+// matvec.  The sweeps of cheby_smooth.cu (one launch the zero-start
+// sweep's first two steps; the warm-start sweep's first step with the
+// prolongation folded in) hand their p and z to it for the steps they do
+// not run: the warm-start sweep's second step, and every step past the
+// second.  From a zero start it also runs the first
+// step alone (no matvec), for a degree-1 sweep.
 //
-// Replaces the Pallas kernel `make_fused_chebyshev` (inner `_kernel`) of
-// src/repro/kernels/vcycle_fused.py, which ran the whole degree-d
-// recurrence `cheby_recurrence` in one call with the level held in VMEM and
-// no grid.  On the H100 the top level of the main path is about 59 MB of
-// slabs against 227 KB of shared memory per block and 50 MB of L2, and
-// every matvec needs all of the previous iterate, so that design does not
-// carry over.
+// Replaces, with cheby_smooth.cu, the Pallas kernel `make_fused_chebyshev`
+// (inner `_kernel`) of src/repro/kernels/vcycle_fused.py, which ran the
+// whole degree-d recurrence `cheby_recurrence` in one call with the level
+// held in VMEM.
 //
-// Design: one launch per recurrence step, with the step's combines fused
-// into the matvec's epilogue.  Per (row i, column j):
+// Per (row i, column j):
 //     res = r - A z_prev                    (or r when starting from zero)
 //     p   = (inv_d * res) / theta           (first step)
 //     p   = c1 * p + c2 * (inv_d * res)     (later steps)
 //     z   = z_prev + p                      (or p when starting from zero)
-// Other rows read z_prev, so z ping-pongs between two buffers; p is read
-// and written only by its own thread and is updated in place.  The first
-// step from a zero start needs no matvec at all.  A persistent kernel with
-// a grid-wide sync would save the relaunches; it is later work.
+// Other rows read z_prev, so z_out must be another buffer; p is read and
+// written only by its own thread and is updated in place.
 //
 // What bounds it on the H100: bytes.  A step with a matvec reads the
 // idx/val slabs, inv_d, r, z_prev and p once and writes p and z once.

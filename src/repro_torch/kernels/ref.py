@@ -8,11 +8,11 @@ operation order: the CPU tests run them, the wrappers
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
 
 The ELL sums run over ``l`` in order, one rounded multiply and one rounded
-add per term; the kernels are built without FMA contraction, so K1 and K5
-agree bit for bit with their plain versions on the card.  K4's output is
-boolean, so it is bit-identical whatever order the work runs in.  K6's
-scan rounds each product and sum on its own and sums over the state in
-ascending order (:func:`ssm_readout`), as its kernel does.
+add per term; the kernels are built without FMA contraction, so K1, K2,
+K3 and K5 agree bit for bit with their plain versions on the card.  K4's
+output is boolean, so it is bit-identical whatever order the work runs in.
+K6's scan rounds each product and sum on its own and sums over the state
+in ascending order (:func:`ssm_readout`), as its kernel does.
 """
 from __future__ import annotations
 
@@ -44,6 +44,31 @@ def cheby_step_ref(idx, val, inv_d, r, z_prev, p, *, first: bool,
     p = dres / theta if first else c1 * p + c2 * dres
     z = p if z_prev is None else z_prev + p
     return p, z
+
+
+def cheby_smooth_zero_ref(idx, val, inv_d, r, *, theta: float, c1: float,
+                          c2: float):
+    """The first two recurrence steps from the zero iterate, as K2's
+    zero-start launch runs them; returns ``(p, z)`` after step 2.
+
+    The launch recomputes step 1's iterate ``(inv_d * r) / theta`` for
+    every neighbour it reads; the same rounded operations over the whole
+    vector give the same bits."""
+    theta = torch.full((), theta, dtype=r.dtype, device=r.device)
+    z1 = inv_d[:, None] * r / theta
+    dres = inv_d[:, None] * (r - spmv_ell_batched_ref(idx, val, z1))
+    p = c1 * z1 + c2 * dres
+    return p, z1 + p
+
+
+def cheby_prolong_step_ref(idx, val, inv_d, r, z, zc=None, agg=None, *,
+                           theta: float):
+    """Step 1 from the warm start ``z + zc[agg]`` (``z`` without ``zc``;
+    the V-cycle's prolongation, one rounded add an element), as K2's
+    post-smooth runs it first; returns ``(p, z)``."""
+    z_in = z if zc is None else z + zc[agg.long()]
+    return cheby_step_ref(idx, val, inv_d, r, z_in, None, first=True,
+                          theta=theta)
 
 
 def restrict_residual_ref(idx, val, perm, agg_ptr, agg_max: int, r, z):

@@ -15,8 +15,14 @@ went through the kernels.
 Design notes for the card (the TPU kernels held whole levels in VMEM):
 
   * K1 streams x through L2; one thread per (row, column).
-  * K2 is one launch per recurrence step, the combines fused into the
-    matvec epilogue, z ping-ponging between two buffers.
+  * K2 is one launch a pre-smooth and two a post-smooth.  From a zero
+    start (the pre-smooth) step 1 has no matvec, so each row recomputes
+    step 1's iterate of every neighbour and runs step 2 in the same pass.
+    From a warm start (the post-smooth) step 1 reads every neighbour's
+    iterate as ``z + zc[agg]``, the V-cycle's prolongation folded in, and
+    step 2 needs every neighbour's step-1 iterate, so it is the next
+    launch.  Steps past the second run one launch each
+    (:func:`cheby_step`).
   * K3 walks a CSR of aggregates built once at hierarchy build, so the sum
     is deterministic without float atomics, reading a copy of the slabs in
     aggregate order made once when the V-cycle is set up.
@@ -99,7 +105,7 @@ def spmv_ell_batched(idx, val, x):
 
 
 # ---------------------------------------------------------------------------
-# K2: fused Chebyshev smoother, one launch per recurrence step
+# K2: fused Chebyshev smoother, one launch a pre-smooth, two a post-smooth
 # ---------------------------------------------------------------------------
 
 def cheby_step(idx, val, inv_d, r, z_prev, p, z_out, *, first: bool,
@@ -135,24 +141,113 @@ def cheby_step(idx, val, inv_d, r, z_prev, p, z_out, *, first: bool,
     return p, z_out
 
 
-def make_fused_chebyshev(idx, val, diag, rho: float, *,
-                         degree: int = 3) -> Callable:
-    """Build ``smooth(r, z=None)``: the degree-``degree`` polynomial as
-    ``degree`` launches of K2 (the first step from zero has no matvec).
-    Coefficients are baked in from the spectral radius estimate ``rho``,
-    exactly as the plain closure does."""
+def _sweep_operands(idx, val, inv_d, r, z=None, zc=None, agg=None):
+    """Check a sweep's operands on the CUDA route; returns ``(n, L, k)``.
+    ``agg``'s values must lie in ``[0, zc.shape[0])`` (a hierarchy's are;
+    checking them would read them back)."""
+    n, L = slabs(idx, val)
+    require(inv_d, "inv_d", torch.float32, 1)
+    require(r, "r", torch.float32, 2)
+    if r.shape[0] != n or inv_d.shape[0] != n:
+        raise ValueError(f"r {tuple(r.shape)} and inv_d "
+                         f"{tuple(inv_d.shape)} need the slab's {n} rows")
+    if z is not None:
+        require(z, "z", torch.float32, 2)
+        if z.shape != r.shape:
+            raise ValueError(f"z {tuple(z.shape)} != r {tuple(r.shape)}")
+    if (zc is None) != (agg is None):
+        raise ValueError("zc and agg come together")
+    if zc is not None:
+        require(zc, "zc", torch.float32, 2)
+        require(agg, "agg", torch.int32, 1)
+        if agg.shape[0] != n or zc.shape[1] != r.shape[1]:
+            raise ValueError(f"agg {tuple(agg.shape)} and zc "
+                             f"{tuple(zc.shape)} do not fit r "
+                             f"{tuple(r.shape)}")
+    return n, L, r.shape[1]
+
+
+def cheby_smooth_zero(idx, val, inv_d, r, *, theta: float, c1: float,
+                      c2: float, want_p: bool = False):
+    """Steps 1 and 2 from the zero iterate in one launch; returns ``(p,
+    z)`` after step 2, ``p`` only with ``want_p`` (later steps need it)."""
+    if not on_cuda(idx, val, inv_d, r):
+        p, z = _ref.cheby_smooth_zero_ref(idx, val, inv_d, r, theta=theta,
+                                          c1=c1, c2=c2)
+        return (p if want_p else None), z
+    from repro_torch.kernels._build import check, library
+
+    n, L, k = _sweep_operands(idx, val, inv_d, r)
+    p = torch.empty_like(r) if want_p else None
+    z = torch.empty_like(r)
+    check(library().repro_cheby_smooth_zero(
+        idx.data_ptr(), val.data_ptr(), inv_d.data_ptr(), r.data_ptr(),
+        ptr(p), z.data_ptr(), n, L, k, float(theta), float(c1), float(c2),
+        stream()), "cheby_smooth_zero")
+    count("cheby_smooth_zero")
+    return p, z
+
+
+def cheby_prolong_step(idx, val, inv_d, r, z, zc=None, agg=None, *,
+                       theta: float):
+    """Step 1 from the warm start ``z + zc[agg]`` (``z`` without ``zc``) in
+    one launch; returns ``(p, z1)``.  The post-smooth's first launch;
+    :func:`cheby_step` runs the next step."""
+    if not on_cuda(idx, val, inv_d, r, z, zc, agg):
+        return _ref.cheby_prolong_step_ref(idx, val, inv_d, r, z, zc, agg,
+                                           theta=theta)
+    from repro_torch.kernels._build import check, library
+
+    n, L, k = _sweep_operands(idx, val, inv_d, r, z, zc, agg)
+    p, z1 = torch.empty_like(r), torch.empty_like(r)
+    check(library().repro_cheby_prolong_step(
+        idx.data_ptr(), val.data_ptr(), inv_d.data_ptr(), r.data_ptr(),
+        z.data_ptr(), ptr(zc), ptr(agg), p.data_ptr(), z1.data_ptr(), n, L,
+        k, float(theta), stream()), "cheby_prolong_step")
+    count("cheby_prolong_step")
+    return p, z1
+
+
+def make_fused_chebyshev(idx, val, diag, rho: float, *, degree: int = 3,
+                         agg=None) -> Callable:
+    """Build ``smooth(r, z=None, zc=None)``: the degree-``degree``
+    polynomial.  ``zc [n_coarse, k]`` with the factory's ``agg`` (int32,
+    each row's coarse vertex) starts from ``z + zc[agg]``: the V-cycle's
+    prolongation, folded into the sweep's first step.  Coefficients are
+    baked in from the spectral radius estimate ``rho``, exactly as the plain
+    closure does.
+
+    From zero the first two steps are one launch
+    (:func:`cheby_smooth_zero`); from a warm start the first step is one
+    (:func:`cheby_prolong_step`); each further step, and a degree-1 sweep
+    from zero, is a :func:`cheby_step` launch."""
+    if degree < 1:
+        raise ValueError(f"degree must be at least 1, got {degree}")
     theta, delta, sigma = cheby_coeffs(rho)
     steps = cheby_step_coeffs(delta, sigma, degree)
     inv_d = 1.0 / diag
 
-    def smooth(r, z=None):
-        p = torch.empty_like(r)
-        cur, nxt = torch.empty_like(r), torch.empty_like(r)
-        cheby_step(idx, val, inv_d, r, z, p, cur, first=True, theta=theta)
-        for c1, c2 in steps:
-            cheby_step(idx, val, inv_d, r, cur, p, nxt, first=False,
-                       theta=theta, c1=c1, c2=c2)
-            cur, nxt = nxt, cur
+    def smooth(r, z=None, zc=None):
+        if zc is not None and (z is None or agg is None):
+            raise ValueError("zc needs a warm start z and the factory's agg")
+        if z is None and not steps:         # degree 1 from zero: no matvec
+            return cheby_step(idx, val, inv_d, r, None, torch.empty_like(r),
+                              torch.empty_like(r), first=True,
+                              theta=theta)[1]
+        if z is None:
+            p, cur = cheby_smooth_zero(idx, val, inv_d, r, theta=theta,
+                                       c1=steps[0][0], c2=steps[0][1],
+                                       want_p=len(steps) > 1)
+            rest = steps[1:]
+        else:
+            p, cur = cheby_prolong_step(idx, val, inv_d, r, z, zc,
+                                        None if zc is None else agg,
+                                        theta=theta)
+            rest = steps
+        for c1, c2 in rest:
+            _, cur = cheby_step(idx, val, inv_d, r, cur, p,
+                                torch.empty_like(r), first=False,
+                                theta=theta, c1=c1, c2=c2)
         return cur
 
     return smooth

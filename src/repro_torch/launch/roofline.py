@@ -179,6 +179,36 @@ def cheby_step_launch(n: int, L: int, k: int):
         n * k * (2 * L + 6)
 
 
+def cheby_smooth_zero_launch(n: int, L: int, k: int):
+    """K2's zero-start launch at degree 2 (steps 1 and 2): the slabs,
+    ``inv_d`` and ``r`` once, ``z`` written; each stored entry a column
+    its neighbour's step-1 iterate (a multiply and a division) and the
+    matvec's multiply and add, eight operations of the combines an
+    element."""
+    return n * L * (_I32 + _F32) + n * _F32 + n * k * _F32 * 2, \
+        n * k * (4 * L + 8)
+
+
+def cheby_prolong_step_launch(n: int, L: int, k: int, n_coarse: int):
+    """K2's post-smooth, its first launch (step 1 from ``z + zc[agg]``):
+    the slabs, ``inv_d``, ``agg``, ``r``, ``z`` and ``zc`` once, ``p`` and
+    ``z1`` written; each stored entry a column the prolongation's add and
+    the matvec's multiply and add, five operations an element."""
+    return (n * L * (_I32 + _F32) + n * (_F32 + _I32) + n * k * _F32 * 4
+            + n_coarse * k * _F32), n * k * (3 * L + 5)
+
+
+def cheby_post_smooth_sweep(n: int, L: int, k: int, n_coarse: int):
+    """K2's post-smooth as a whole (degree 2, the prolongation folded in),
+    not one launch: the sweep's inputs (the slabs, ``inv_d``, ``agg``,
+    ``r``, ``z`` and ``zc``) once and ``z`` written.  The step-1 ``p`` and
+    ``z`` that its two launches pass through memory are their own traffic,
+    not the sweep's: the second step's two-hop matvec needs every
+    neighbour's step-1 iterate.  Operations: both steps'."""
+    return (n * L * (_I32 + _F32) + n * (_F32 + _I32) + n * k * _F32 * 3
+            + n_coarse * k * _F32), n * k * (5 * L + 11)
+
+
 def restrict_residual_launch(n: int, L: int, k: int, n_coarse: int):
     """K3: the slabs, ``perm``, ``agg_ptr``, ``r`` and ``z`` once, the
     coarse residual written; the matvec, the subtraction and the member

@@ -14,8 +14,9 @@ solve at the coarsest level, prolongation and Chebyshev post-smooth.
 ``matvec_impl``:
 
   * ``"fused"`` — the CUDA kernels: K1 for every matvec (the PCG's and the
-    spectral radius power iteration's), K2 for every smoothing sweep, K3
-    for every down-sweep.  On CPU tensors the same calls run the kernels'
+    spectral radius power iteration's), K2 for every smoothing sweep (the
+    post-smooth's with the prolongation folded in), K3 for every
+    down-sweep.  On CPU tensors the same calls run the kernels'
     plain versions.
   * ``"kernel"`` — kernel K5, one launch per column of every matvec, as
     the reference's per-column Pallas route; the V-cycle then runs the
@@ -178,7 +179,7 @@ def make_vcycle(hier: Hierarchy, *, degree: int = 2,
     rhos = torch.stack(rho_dev).tolist() if rho_dev else []
     if fused:
         smoothers = [make_fused_chebyshev(lev.idx, lev.val, lev.diag, rho,
-                                          degree=degree)
+                                          degree=degree, agg=lev.agg)
                      for lev, rho in zip(hier.levels, rhos)]
         restricts = [make_fused_restrict_residual(lev.idx, lev.val, lev.perm,
                                                   lev.agg_ptr, lev.agg_max)
@@ -188,7 +189,7 @@ def make_vcycle(hier: Hierarchy, *, degree: int = 2,
                      for mv, lev, rho in zip(matvecs, hier.levels, rhos)]
         restricts = [_make_restrict(mv, lev)
                      for mv, lev in zip(matvecs, hier.levels)]
-    aggs = [lev.agg.long() for lev in hier.levels]
+    aggs = [] if fused else [lev.agg.long() for lev in hier.levels]
 
     def cycle(l: int, r):
         if l == len(hier.levels):
@@ -200,8 +201,9 @@ def make_vcycle(hier: Hierarchy, *, degree: int = 2,
             rc = restricts[l](r, z)                         # restrict
         zc = cycle(l + 1, rc)                               # coarse correct
         with named_scope(f"vcycle.L{l}.up"):
-            z = z + zc[aggs[l]]                             # prolong
-            return smooth(r, z)                             # post-smooth
+            if fused:               # K2 reads z + zc[agg] as it post-smooths
+                return smooth(r, z, zc)
+            return smooth(r, z + zc[aggs[l]])               # prolong, smooth
 
     def msolve(r):
         return _center(cycle(0, r))

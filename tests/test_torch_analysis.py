@@ -470,7 +470,7 @@ def test_oversized_level_breaks_the_launch_limits():
                                         graph="planted")
     assert _rules_of(fs) == ["cuda-launch-limits"]
     assert {os.path.basename(f.file) for f in fs} == {
-        "spmv_ell_batched.cu", "cheby_step.cu"}
+        "spmv_ell_batched.cu", "cheby_step.cu", "cheby_smooth.cu"}
     assert all("widen" in f.message and "int n" in f.message for f in fs)
     # a realistic level is within every limit
     assert cuda_check.check_level_triples([(2 ** 20, 7, 397_553)]) == []

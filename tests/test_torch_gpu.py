@@ -37,6 +37,8 @@ from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.pipeline import Pipeline, pdgrass_config  # noqa: E402
 from repro_torch.solver import (SolveRequest, SolverService,  # noqa: E402
                                 build_hierarchy, ell_laplacian, make_solver)
+from repro_torch.solver.device_pcg import (  # noqa: E402
+    make_chebyshev_smoother, make_matvec)
 from repro_torch.solver.hierarchy import aggregate_csr  # noqa: E402
 from repro_torch.solver.sharded import shard_ell_slabs  # noqa: E402
 
@@ -60,8 +62,8 @@ def cuda():
 @pytest.mark.parametrize("n", [31, 100, 257])
 @pytest.mark.parametrize("k", [1, 3, 8, 16])
 def test_gpu_kernels_match_plain(cuda, n, k):
-    """K1 and K3 bitwise, K2 allclose (expected bitwise) on the card, and
-    each wrapper counts its launch."""
+    """K1, K2's step and K3 bitwise on the card, and each wrapper counts
+    its launch."""
     gen = torch.Generator(device=cuda).manual_seed(n + k)
     L, nx = 5, n + 7
     idx = torch.randint(0, nx, (n, L), generator=gen, device=cuda,
@@ -79,8 +81,7 @@ def test_gpu_kernels_match_plain(cuda, n, k):
     pk, zk = tvf.cheby_step(idx, val, inv_d, r, z, p.clone(),
                             torch.empty_like(r), **kw)
     pr, zr = kref.cheby_step_ref(idx, val, inv_d, r, z, p.clone(), **kw)
-    torch.testing.assert_close(pk, pr, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(zk, zr, rtol=1e-5, atol=1e-5)
+    assert torch.equal(pk, pr) and torch.equal(zk, zr)
     agg = torch.arange(n, device=cuda, dtype=torch.int32) % max(1, n // 3)
     perm, ptr, amax = aggregate_csr(agg, max(1, n // 3))
     assert torch.equal(
@@ -88,6 +89,80 @@ def test_gpu_kernels_match_plain(cuda, n, k):
         kref.restrict_residual_ref(idx, val, perm, ptr, amax, r, z))
     after = kops.launch_counts()
     assert all(after[name] == before[name] + 1 for name in V_CYCLE_KERNELS)
+
+
+K2_SWEEPS = ("cheby_smooth_zero", "cheby_prolong_step")
+
+
+def _k2_problem(gen, device, n, k, L=5):
+    idx = torch.randint(0, n, (n, L), generator=gen, device=device,
+                        dtype=torch.int32)
+    val = torch.randn((n, L), generator=gen, device=device)
+    inv_d = torch.rand((n,), generator=gen, device=device) + 0.5
+    r, z = (torch.randn((n, k), generator=gen, device=device)
+            for _ in range(2))
+    return idx, val, inv_d, r, z
+
+
+def _k2_aggregates(gen, device, n, k, nc):
+    """``(zc, agg)`` with ``nc`` aggregates: one of every row, or ragged
+    ones with every coarse vertex used."""
+    agg = torch.randint(0, nc, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    agg[:nc] = torch.arange(nc, device=device, dtype=torch.int32)
+    return torch.randn((nc, k), generator=gen, device=device), agg
+
+
+def _k2_sweeps_bitwise(args, z, zc, agg, kw):
+    """Each of K2's sweep launches against its plain version, the zero
+    start with and without p written, the prolongation step with and
+    without the prolongation: how many launches of each it made."""
+    made = dict.fromkeys(K2_SWEEPS, 0)
+    for want_p in (False, True):
+        p, zk = tvf.cheby_smooth_zero(*args, want_p=want_p, **kw)
+        pr, zr = kref.cheby_smooth_zero_ref(*args, **kw)
+        assert torch.equal(zk, zr)
+        assert torch.equal(p, pr) if want_p else p is None
+        made["cheby_smooth_zero"] += 1
+    for zc_agg in ((None, None), (zc, agg)):
+        p, z1 = tvf.cheby_prolong_step(*args, z, *zc_agg, theta=kw["theta"])
+        pr, zr = kref.cheby_prolong_step_ref(*args, z, *zc_agg,
+                                             theta=kw["theta"])
+        assert torch.equal(p, pr) and torch.equal(z1, zr)
+        made["cheby_prolong_step"] += 1
+    return made
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [31, 100, 257])
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+def test_gpu_k2_sweeps_match_plain(cuda, n, k):
+    """K2's sweep launches bitwise against their plain versions on one
+    aggregate and on ragged aggregates, each counted once a launch; and
+    the factory at degrees 2 and 3 bitwise against the plain smoother
+    (``make_chebyshev_smoother`` over the plain matvec, from zero and from
+    ``z + zc[agg]``)."""
+    gen = torch.Generator(device=cuda).manual_seed(10 * n + k)
+    idx, val, inv_d, r, z = _k2_problem(gen, cuda, n, k)
+    args = (idx, val, inv_d, r)
+    diag = 1.0 / inv_d
+    for nc in (1, max(2, n // 3)):
+        zc, agg = _k2_aggregates(gen, cuda, n, k, nc)
+        before = kops.launch_counts()
+        made = _k2_sweeps_bitwise(args, z, zc, agg,
+                                  dict(theta=1.37, c1=0.61, c2=0.93))
+        after = kops.launch_counts()
+        assert all(after[name] - before[name] == made[name]
+                   for name in K2_SWEEPS)
+        for degree in (2, 3):
+            plain = make_chebyshev_smoother(make_matvec(idx, val, "ref"),
+                                            diag, 1.9, degree=degree)
+            want_zero = plain(r)
+            want_warm = plain(r, z + zc[agg.long()])
+            smooth = tvf.make_fused_chebyshev(idx, val, diag, 1.9,
+                                              degree=degree, agg=agg)
+            assert torch.equal(smooth(r), want_zero)
+            assert torch.equal(smooth(r, z, zc), want_warm)
 
 
 def _k3_case(case, device):
@@ -167,7 +242,14 @@ def test_gpu_slice_matches_cpu_and_plain(cuda):
     before = kops.launch_counts()
     fused = make_solver(idx, val, hier, device=cuda)(b)
     after = kops.launch_counts()
-    assert all(after[k] > before[k] for k in V_CYCLE_KERNELS)
+    # a V-cycle launches at every level one zero-start sweep, one
+    # prolongation step and one later step (degree 2)
+    assert after["spmv_ell_batched"] > before["spmv_ell_batched"]
+    made = {k: after[k] - before[k] for k in (
+        "cheby_smooth_zero", "cheby_prolong_step", "cheby_step",
+        "restrict_residual")}
+    assert made["restrict_residual"] > 0
+    assert len(set(made.values())) == 1, made
     plain = make_solver(idx, val, hier, matvec_impl="ref", device=cuda)(b)
     assert bool(fused.converged.all())
     assert torch.equal(fused.iters, plain.iters)
@@ -761,6 +843,7 @@ def test_gpu_cuda_check_over_the_built_library(cuda):
     kernels = report.kernels
     names = {k.name for k in kernels}
     assert {"spmv_ell_batched_kernel", "cheby_step_kernel",
+            "cheby_smooth_zero_kernel", "cheby_prolong_step_kernel",
             "restrict_residual_any", "restrict_residual_vec",
             "spmv_ell_kernel", "stream_kernel", "rows_kernel",
             "ssm_scan_kernel"} <= names

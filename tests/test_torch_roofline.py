@@ -63,6 +63,11 @@ GOLDEN = [
     ("spmv_batched_launch", (2 ** 20, 7, 8), 0.03756093134328358),
     ("spmv_batched_launch", (131_072, 7, 8, 133_120), 0.004714679402985074),
     ("cheby_step_launch", (2 ** 20, 7, 8), 0.06886170746268656),
+    ("cheby_smooth_zero_launch", (2 ** 20, 7, 8), 0.0388129623880597),
+    ("cheby_prolong_step_launch", (2 ** 20, 7, 8, 397_553),
+     0.06389501134328358),
+    ("cheby_post_smooth_sweep", (2 ** 20, 7, 8, 397_553),
+     0.05387876298507462),
     ("restrict_residual_launch", (2 ** 20, 7, 8, 397_553),
      0.043085174925373136),
     ("spmv_launch", (2 ** 20, 7), 0.020032496716417908),
@@ -84,6 +89,27 @@ def test_launch_bounds_count_x_once_where_the_model_counts_gathers():
     assert ops == roof.ell_spmv_flops(n, L, k)
     # the reference's model gathers a k-wide row of x per stored entry
     assert roof.ell_spmv_bytes(n, L, k) - nbytes == (n * L * k - n * k) * 4
+
+
+def test_k2_sweep_launches_count_by_hand():
+    """K2's launches at level 0: the zero start reads the slabs, inv_d and
+    r and writes z; the warm sweep's bound counts its inputs and z, and
+    its two launches move more (p and z of step 1 through memory)."""
+    n, L, k, nc = 2 ** 20, 7, 8, 397_553
+    slab, vec = n * L * 8, n * k * 4
+    zb, zo = roof.cheby_smooth_zero_launch(n, L, k)
+    assert (zb, zo) == (slab + n * 4 + 2 * vec, n * k * (4 * L + 8))
+    pb, po = roof.cheby_prolong_step_launch(n, L, k, nc)
+    assert pb == slab + n * 8 + 4 * vec + nc * k * 4
+    wb, wo = roof.cheby_post_smooth_sweep(n, L, k, nc)
+    assert wb == slab + n * 8 + 3 * vec + nc * k * 4
+    sb, so = roof.cheby_step_launch(n, L, k)
+    assert wo == po + so
+    assert wb < pb + sb
+    # against the two step launches it replaces (the first reads r and
+    # inv_d and writes p and z; the second is a step with its matvec):
+    # six k-wide vectors and one inv_d fewer
+    assert (n * 4 + 3 * vec) + sb - zb == n * 4 + 6 * vec
 
 
 def test_ssm_scan_terms():
