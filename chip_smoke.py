@@ -127,6 +127,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      layers (window 1024 in
      layer 1) in float32: a 2048-token prefill and 8 decode steps, each
      against a token-by-token decode of the same 2056 tokens within 1e-4;
+  7c. the MoE, VLM and encoder-decoder families at full width, each
+     served as phase 7b serves its models and freed before the next:
+     mixtral-8x22b on 4 of its 56 layers (10,418,903,040 parameters;
+     both dispatch forms in turn), arctic-480b on 2 of its 35 layers and
+     32 of its 128 experts (7,601,097,728), phi-3-vision-4.2b whole
+     (3,825,404,928; a 256-patch ``[4, 256, 1024]`` frontend from the
+     seed, through ``prefill(frontend=...)``, before prompts of 1792-256
+     tokens: 2,048 positions) and seamless-m4t-medium
+     whole (878,770,176; 1,024 source frames ``[4, 1024, 1024]`` and
+     decoder prompts of 64-16 tokens, through ``prefill(src=...)``); no
+     kernel launched; the VLM's and the encoder-decoder's float32
+     prefill against one prefill token and decode steps at full depth
+     within 1e-4; each one's first 2 layers (2 encoder layers too) card
+     against CPU in bf16 within 2e-2 * sqrt(d_model / 64); an MoE's
+     tokens whose float32 routing parted counted, and its MoE outputs and
+     every position's logits held before the first of them;
+  6f. (run after 6e) the paper's production dry run
+     (``repro_torch.launch.dryrun_pdgrass``): mesh2d(4096, 4096)'s
+     33,538,050 off-tree rows as one subtask padded to 2^25 rows, 16
+     rounds of the inner engine on the 256- and 512-shard production
+     meshes and on 8 shards, each row printed; the statuses after those
+     rounds bitwise equal at 8, 256 and 512 shards, a round's collective
+     bytes and a shard's argument bytes equal to their closed forms, K4
+     once a round on every shard; ``recover_inner`` to the end over the
+     256 shards on mesh2d(128, 128)'s off-tree rows as one subtask,
+     bitwise equal to ``recover_serial``;
   8. each kernel timed at its path's shapes beside its plain version,
      its byte/operation bound and, for K1 and K5, ``torch.sparse.mm`` on a
      CSR copy of the operator; K2 and K3 also at every level's shapes
@@ -161,7 +187,9 @@ phase 5's K4 route is counted and printed on its own), K5 over phase 6's
 kernel-route solve, K4 over phase 6b's two builds, K1-K3 over phase 6c's
 daemon replay, each spectral call of phase 6d on its own, K4 over each
 of phase 6e's two ``recover_mixed`` runs and K1 over its sharded solve,
-K6 over phase 7's first ``generate`` and over each phase 7b model's.
+K4 over phase 6f's rounds (its record's ``"dryrun"``), K6 over phase 7's
+first ``generate`` and over each phase 7b model's; phase 7c's models run
+no kernel (every count read after each ``generate`` must be 0).
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1172,6 +1200,141 @@ def distributed_path(np, torch, g, hier, coarse_dev, idx, val, b_dev,
     return k1, k4_a + k4_b
 
 
+DRY_ROUNDS = 16        # phase 6f: rounds a mesh runs at 2^25 rows
+
+
+def dryrun_path(np, torch, kops, ref, rec):
+    """Phase 6f, the paper's production dry run: ``mesh2d(4096, 4096)``'s
+    33,538,050 off-tree rows as one subtask of 2^25 rows, ``DRY_ROUNDS``
+    rounds of the inner engine on the 256- and 512-shard production meshes
+    and on 8 shards (``make_mesh_for(8)``): every row printed, the
+    statuses after those rounds bitwise equal at 8, 256 and 512 shards (a
+    round's block is picked by global rank, whatever the shard count), a
+    round's collective bytes and a shard's argument bytes equal to their
+    closed forms, K4 launched once a round on every shard; then
+    ``recover_inner`` to the end on mesh2d(128, 128)'s off-tree rows as one
+    subtask over the 256 shards, bitwise equal to ``recover_serial``.
+    K4 at the dry run's shape: the 256-shard run's first launch of its
+    second round (shard 0, 131,072 rows) held bitwise against the plain
+    version and timed beside it and its bound.  Returns K4's record of the
+    phase: its launches, and that launch's numbers."""
+    from repro_torch.configs.pdgrass_graph import CONFIG
+    from repro_torch.core.distributed import recover_inner
+    from repro_torch.core.graph import mesh2d
+    from repro_torch.launch import dryrun_pdgrass as dry
+    from repro_torch.launch import make_mesh_for, make_production_mesh
+
+    from repro_torch.launch import roofline as rf
+
+    cfg = CONFIG
+    rows = dry.production_rows(cfg, device="cuda")
+    B, c1 = cfg.block_size, cfg.c + 1
+    kops.reset_launches()
+    out, shards = {}, 0
+    mark, calls, k4_args = kops.similarity_mark, [0], []
+
+    def recording(*args, **kw):
+        if calls[0] == 256:          # round 2, shard 0 of the 256 shards
+            k4_args.extend(a.clone() for a in args)
+        calls[0] += 1
+        return mark(*args, **kw)
+
+    for name, mesh in (("256", make_production_mesh()),
+                       ("512", make_production_mesh(multi_pod=True)),
+                       ("8", make_mesh_for(8))):
+        kops.similarity_mark = recording if name == "256" else mark
+        try:
+            row, st = dry.dry_run(rows, mesh, cfg, DRY_ROUNDS)
+        finally:
+            kops.similarity_mark = mark
+        print(f"dry run row: {json.dumps(row)}", flush=True)
+        P = mesh.size
+        shards += P * row["rounds_run"]
+        out[name] = st
+        gather = P * (B * (2 * c1 + 2) + 1) * 4
+        arg = cfg.m_offtree // P * (2 * c1 + 2) * 4
+        print(f"dry run {row['mesh']}: collective bytes a round "
+              f"{row['coll_by_kind']} (closed form all-gather {gather}, "
+              f"all-reduce 4), argument bytes a shard {row['arg_bytes']} "
+              f"(closed form {arg}), {row['arg_gb']} GB", flush=True)
+        if row["rounds_run"] != DRY_ROUNDS:
+            fail(f"dry run {row['mesh']}: {row['rounds_run']} rounds, want "
+                 f"{DRY_ROUNDS}")
+        if row["coll_by_kind"] != {"all-gather": gather, "all-reduce": 4}:
+            fail(f"dry run {row['mesh']}: collective bytes "
+                 f"{row['coll_by_kind']} differ from the closed form")
+        if row["arg_bytes"] != arg or row["arg_gb"] != round(arg / 2 ** 30,
+                                                              3):
+            fail(f"dry run {row['mesh']}: argument bytes {row['arg_bytes']} "
+                 f"({row['arg_gb']} GB), want {arg}")
+    launches = kops.launch_counts()["similarity_mark"]
+    st = out["256"]
+    print(f"dry run statuses after {DRY_ROUNDS} rounds: recovered "
+          f"{int((st == rec.STATUS_RECOVERED).sum())}, skipped "
+          f"{int((st == rec.STATUS_SKIPPED).sum()) - (cfg.m_offtree - rows.m_edges)}"
+          f" edges, open {int((st == rec.STATUS_OPEN).sum())}; equal at 8, "
+          f"256, 512 shards: {[torch.equal(st, out[k]) for k in ('8', '512')]}"
+          f"; K4 launches {launches} (rounds times shards {shards})",
+          flush=True)
+    if not (torch.equal(st, out["8"]) and torch.equal(st, out["512"])):
+        fail("dry run: the statuses after the same rounds differ between "
+             "8, 256 and 512 shards")
+    if launches != shards:
+        fail(f"dry run: K4 launched {launches} times, want one a round on "
+             f"every shard, {shards}")
+    del rows, out, st
+    torch.cuda.empty_cache()
+
+    g = mesh2d(128, 128, seed=0)
+    m_off = g.m - (g.n - 1)
+    small = dry.production_rows(
+        dataclasses.replace(cfg, m_offtree=-(-m_off // 256) * 256), g,
+        device="cuda")
+    t0 = time.perf_counter()
+    st, rounds = recover_inner(*small[:4], make_production_mesh(),
+                               axis=("data", "model"), block_size=B)
+    torch.cuda.synchronize()
+    inner_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = rec.recover_serial(rec.RecoveryProblem(
+        *small[:4], torch.zeros(small.seg.shape, device="cuda")))
+    serial_s = time.perf_counter() - t0
+    print(f"recover_inner to the end on mesh2d(128, 128)'s {small.m_edges} "
+          f"off-tree rows, one subtask over 256 shards: {rounds} rounds, "
+          f"{inner_s:.3f} s; recover_serial {serial_s:.3f} s; recovered "
+          f"{int((st == rec.STATUS_RECOVERED).sum())}", flush=True)
+    if not np.array_equal(st.cpu().numpy(), want):
+        fail("recover_inner over 256 shards differs from recover_serial")
+    total = kops.launch_counts()["similarity_mark"]
+    print(f"phase 6f K4 launches: {total} ({launches} in the 2^25-row "
+          f"rounds, {total - launches} to the end on mesh2d(128, 128))",
+          flush=True)
+    if total - launches != 256 * rounds:
+        fail(f"recover_inner launched K4 {total - launches} times over "
+             f"{rounds} rounds on 256 shards")
+
+    got = kops.similarity_mark(*k4_args)
+    if not torch.equal(got, ref.similarity_mark_ref(*k4_args)):
+        fail("K4 is not bitwise equal to its plain version at the dry "
+             "run's shape")
+    nbytes, ops, sig_rows, cells = rf.similarity_mark_launch(k4_args)
+    bms, by = rf.bound_ms(nbytes, ops)
+    k4 = dict(launches=total, max_abs_err=0.0,
+              ms=time_ms(torch, lambda: kops.similarity_mark(*k4_args)),
+              plain_ms=time_ms(torch,
+                               lambda: ref.similarity_mark_ref(*k4_args),
+                               reps=3),
+              bound_ms=bms, bound_by=by)
+    print(f"K4 at the dry run's shape (256 shards, round 2, shard 0): "
+          f"m={k4_args[4].shape[0]} K={k4_args[0].shape[0]}, "
+          f"{int((k4_args[2] >= 0).sum())} recovered candidates, "
+          f"{sig_rows} rows in their subtask, {cells:.0f} cells, {nbytes} "
+          f"bytes; {k4['ms']:.4f} ms a launch (device), plain "
+          f"{k4['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), ratio "
+          f"{k4['ms'] / bms:.1f}", flush=True)
+    return k4
+
+
 def ell_to_csr(torch, idx, val):
     """The ELL operator as a valid CSR (sorted, unique columns per row; the
     ELL padding entries are zeros on the diagonal and merge into it)."""
@@ -1824,7 +1987,8 @@ def lm_serve(np, torch, kops, mm, eng, cfg, prompts, label, first,
     pre = [ms for kind, ms, _ in steps if kind == "prefill"]
     dec = [ms for kind, ms, _ in steps if kind == "decode"]
     n_tok = sum(len(o) for o in out)
-    print(f"LM {label}: prefill {pre[0]:.2f} ms (B=4, S={max(LM_LENS)}), "
+    S = max(len(p) for p in prompts)
+    print(f"LM {label}: prefill {pre[0]:.2f} ms (B=4, S={S}), "
           f"decode {np.mean(dec):.3f} ms a step (mean of {len(dec)}; "
           f"min {min(dec):.3f}, max {max(dec):.3f}), {n_tok} tokens in "
           f"{wall_s:.3f} s: {n_tok / wall_s:.2f} generated tokens/s "
@@ -1836,10 +2000,14 @@ def lm_serve(np, torch, kops, mm, eng, cfg, prompts, label, first,
              f"steps, want 1 and {LM_NEW - 1}")
     if not all(ok for _, _, ok in steps):
         fail(f"LM {label}: non-finite logits")
+    # the head's logits span the padded vocabulary, as the reference's
+    # decode_step gives them, and greedy decoding takes its argmax over
+    # all of them: with random weights a padded column wins as often as
+    # any (arctic-480b's did)
+    Vp = mm.vocab_padded(cfg)
     if [len(o) for o in out] != [LM_NEW] * 4 or any(
-            o.min() < 0 or o.max() >= cfg.vocab for o in out):
-        fail(f"LM {label}: ids out of [0, {cfg.vocab}) or of the wrong "
-             f"count")
+            o.min() < 0 or o.max() >= Vp for o in out):
+        fail(f"LM {label}: ids out of [0, {Vp}) or of the wrong count")
     others = {k: v for k, v in launches.items() if v and k not in kernels}
     if others:
         fail(f"LM {label}: launched other kernels {others}")
@@ -1877,8 +2045,10 @@ def prefill_vs_decode(torch, mm, view, c, toks):
 
 def first_layers(mm, model, cfg, n):
     """The first ``n`` layers of ``model`` (its weights, not copies) with
-    the final norm and head: a model of ``cfg`` cut to ``n`` layers."""
-    cut = dataclasses.replace(cfg, n_layers=n)
+    the final norm and head, and the first ``n`` of an encoder's: a model
+    of ``cfg`` cut to ``n`` layers."""
+    cut = dataclasses.replace(cfg, n_layers=n,
+                              enc_layers=min(cfg.enc_layers, n))
     sub = mm.LM(cut, device="meta")
     keep = set(sub.state_dict())
     sub.load_state_dict({k: v for k, v in model.state_dict().items()
@@ -2108,6 +2278,259 @@ def attention_lm_path(np, torch, kops):
         print(f"phase 7b {name}: {time.perf_counter() - t_model:.3f} s",
               flush=True)
     return hymba
+
+
+# phase 7c: (config, cut, parameters).  mixtral-8x22b keeps 4 of its 56
+# layers: 10,418,903,040 float32 parameters (41.7 GB) and their bf16 cast
+# (20.8 GB) fill 62.5 GB of the card's 80.  One arctic-480b layer holds
+# 128 experts of 3 x 7168 x 4864 (13.4 B parameters: 53.6 GB in float32,
+# 26.8 GB as the bf16 cast), more than the card holds, so it keeps 2
+# layers of 32 experts (7,601,097,728 parameters); its full shape is held
+# on ``meta`` (tests/test_torch_lm_families.py).  phi-3-vision-4.2b and
+# seamless-m4t-medium run whole.
+FAMILY_LMS = (("mixtral-8x22b", dict(n_layers=4), 10_418_903_040),
+              ("arctic-480b", dict(n_layers=2, n_experts=32), 7_601_097_728),
+              ("phi-3-vision-4.2b", {}, 3_825_404_928),
+              ("seamless-m4t-medium", {}, 878_770_176))
+SRC_FRAMES = 1024                 # seamless's source frames
+ENCDEC_LENS = (64, 48, 32, 16)    # seamless's decoder prompts
+
+
+class PrefixEngine:
+    """``Engine``'s greedy loop for a VLM's patch prefix or an
+    encoder-decoder's source frames, which ``Engine`` (as the reference's)
+    does not pass: prompts left-padded to the longest, ``mm.prefill(...,
+    frontend=..., src=...)``, then ``mm.decode_step`` from the position
+    after the prefix, each step's ids read back."""
+
+    def __init__(self, torch, mm, cfg, model, cache_len, frontend=None,
+                 src=None):
+        self.torch, self.mm, self.cfg = torch, mm, cfg
+        self.params = mm.cast_for_compute(model, cfg, device="cuda")
+        self.C, self.frontend, self.src = cache_len, frontend, src
+
+    def generate(self, requests):
+        import numpy as np
+        torch, mm, cfg = self.torch, self.mm, self.cfg
+        S = max(len(r.prompt) for r in requests)
+        toks = np.zeros((len(requests), S), np.int32)
+        for i, r in enumerate(requests):
+            toks[i, S - len(r.prompt):] = r.prompt
+        logits, caches = mm.prefill(
+            self.params, cfg, torch.as_tensor(toks, device="cuda"), self.C,
+            frontend=self.frontend, src=self.src)
+        pos = S + (self.frontend.shape[1] if self.frontend is not None
+                   else 0)
+        cur = torch.argmax(logits, -1).cpu().numpy().astype(np.int32)
+        outs = [[int(c)] for c in cur]
+        for _ in range(max(r.max_new for r in requests) - 1):
+            logits, caches = mm.decode_step(
+                self.params, cfg, caches,
+                torch.as_tensor(cur[:, None], device="cuda"), pos)
+            cur = torch.argmax(logits, -1).cpu().numpy().astype(np.int32)
+            pos += 1
+            for o, c in zip(outs, cur):
+                o.append(int(c))
+        return [np.asarray(o, np.int32) for o in outs]
+
+
+def prefix_vs_decode(torch, mm, view, cfg, toks, frontend, src):
+    """``toks [1, S]`` after a patch prefix or with source frames: the
+    prefill of all S tokens against the prefill of the first token and
+    S - 1 decode steps; printed, returned with the max abs error."""
+    S = toks.shape[1]
+    P = frontend.shape[1] if frontend is not None else 0
+    lp, _ = mm.prefill(view, cfg, toks, P + S, frontend=frontend, src=src)
+    ld, caches = mm.prefill(view, cfg, toks[:, :1], P + S, frontend=frontend,
+                            src=src)
+    for t in range(1, S):
+        ld, caches = mm.decode_step(view, cfg, caches, toks[:, t:t + 1],
+                                    P + t)
+    err = float((lp - ld).abs().max())
+    print(f"LM {cfg.name} prefill vs 1 + {S - 1} decode steps (prefix "
+          f"{P}, source {0 if src is None else src.shape[1]}), "
+          f"{cfg.n_layers} layers, {cfg.dtype}: max abs err {err:.4e}, "
+          f"logits max |.| {float(ld.abs().max()):.4f}", flush=True)
+    return err
+
+
+def family_prefill_both(torch, kops, mm, L, two, cfg2, toks, frontend,
+                        src):
+    """The 2-layer model's bf16 prefill of ``toks`` on the card and on the
+    CPU, each layer's float32 routing and MoE output recorded, and the
+    logits of every position (the final norm and head on the last layer's
+    output): by device, (last logits, {"route": [...], "y": [...]},
+    launches, seconds, every position's logits ``[S_all, Vp]``)."""
+    out = {}
+    route, ffn, rest = L.moe_route, L.moe_ffn, mm._rest_of_layer
+    for dev in ("cuda", "cpu"):
+        rec = {"route": [], "y": [], "x": []}
+        L.moe_route = lambda lg, c: rec["route"].append(route(lg, c)) \
+            or rec["route"][-1]
+        L.moe_ffn = lambda x, p, c: rec["y"].append(ffn(x, p, c)) \
+            or rec["y"][-1]
+        mm._rest_of_layer = lambda *a: rec["x"].append(rest(*a)) \
+            or rec["x"][-1]
+        try:
+            view = mm.cast_for_compute(two, cfg2, device=dev)
+            kops.reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = mm.prefill(
+                view, cfg2, toks.to(dev), toks.shape[1] + (
+                    0 if frontend is None else frontend.shape[1]),
+                frontend=None if frontend is None else frontend.to(dev),
+                src=None if src is None else src.to(dev))
+            secs = time.perf_counter() - t0
+            every = mm._logits(view, cfg2, rec["x"][-1][0])
+        finally:
+            L.moe_route, L.moe_ffn, mm._rest_of_layer = route, ffn, rest
+        out[dev] = (logits.cpu(), rec, kops.launch_counts(), secs,
+                    every.cpu())
+        del view
+    return out
+
+
+def family_card_vs_cpu(torch, kops, mm, L, two, cfg2, toks, frontend, src,
+                       bar):
+    """The 2-layer model (2 encoder layers too) in bf16 on the card and on
+    the CPU, its prefill with the prefix or the source frames: logits
+    within ``bar``.  For an MoE each layer's float32 routing (expert ids
+    and kept slots of every token) is read on both devices and the tokens
+    whose routing parts are counted.  Attention is causal and a token's
+    capacity slot depends only on the tokens before it, so the positions
+    before the first one that parted in any layer agree in their whole
+    causal prefix: there each layer's MoE output and every position's
+    logits (the final norm and head on the last layer's output) are held
+    within ``bar``; the last position's logits where nothing parted.
+    Returns the parted tokens by layer."""
+    out = family_prefill_both(torch, kops, mm, L, two, cfg2, toks, frontend,
+                              src)
+    S = out["cpu"][4].shape[0]
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    parted, cut, y_err = [], S, 0.0
+    for rc, rh in zip(out["cuda"][1]["route"], out["cpu"][1]["route"]):
+        same = ((rc.gate_i.cpu() == rh.gate_i).all(-1)
+                & (rc.keep.cpu() == rh.keep).reshape(
+                    rh.gate_i.shape[:2] + (-1,)).all(-1)).reshape(-1)
+        parted.append(int((~same).sum()))
+        if not bool(same.all()):
+            cut = min(cut, int((~same).nonzero()[0]))
+    if cut == 0:
+        fail(f"{cfg2.name} 2-layer model: routing parted at the first "
+             f"token, so no position is held")
+    for yc, yh in zip(out["cuda"][1]["y"], out["cpu"][1]["y"]):
+        a = yc.y.cpu().float().reshape(-1, yc.y.shape[-1])[:cut]
+        b = yh.y.float().reshape(-1, yh.y.shape[-1])[:cut]
+        y_err = max(y_err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=bar, atol=bar):
+            fail(f"{cfg2.name} 2 layers: the MoE outputs of the {cut} "
+                 f"tokens before the first parted routing part by "
+                 f"{float((a - b).abs().max()):.3e} between card and CPU, "
+                 f"bar {bar:.4f}")
+    a, b = out["cuda"][4][:cut], out["cpu"][4][:cut]
+    every_err = float((a - b).abs().max())
+    moe = (f"; tokens whose routing parted, by layer, {parted} of "
+           f"{toks.numel()}, the first at position "
+           f"{cut if cut < S else None}; before it MoE output max abs err "
+           f"{y_err:.4e}, every position's logits {every_err:.4e}"
+           if parted else "")
+    print(f"LM {cfg2.name} 2 layers, card vs CPU ({toks.shape[1]} tokens): "
+          f"last logits max abs err {err:.4e}{moe}; card "
+          f"{out['cuda'][3]:.3f} s, CPU {out['cpu'][3]:.3f} s", flush=True)
+    if any(v for d in ("cuda", "cpu") for v in out[d][2].values()):
+        fail(f"{cfg2.name}: a kernel ran in a model that has none")
+    if parted and not torch.allclose(a, b, rtol=bar, atol=bar):
+        fail(f"{cfg2.name} 2-layer model: card and CPU logits of the {cut} "
+             f"positions before any parted routing part by "
+             f"{every_err:.3e}, bar {bar:.4f}")
+    if cut == S and not torch.allclose(out["cuda"][0], out["cpu"][0],
+                                       rtol=bar, atol=bar):
+        fail(f"{cfg2.name} 2-layer model: card and CPU last logits part by "
+             f"{err:.3e}, bar {bar:.4f}")
+    return parted
+
+
+def family_lm_path(np, torch, kops):
+    """Phase 7c, the MoE, VLM and encoder-decoder families at full width,
+    each served as phase 7b serves the attention families and freed before
+    the next: mixtral-8x22b (4 of 56 layers; both dispatch forms in turn),
+    arctic-480b (2 of 35 layers, 32 of 128 experts), phi-3-vision-4.2b
+    (whole; a 256-patch ``[4, 256, 1024]`` frontend from the seed, served
+    through ``prefill(frontend=...)``, before prompts of 1792-256 tokens)
+    and seamless-m4t-medium (whole;
+    1,024 source frames ``[4, 1024, 1024]`` and decoder prompts of 64-16
+    tokens, through ``prefill(src=...)``); no kernel launched.  Each
+    one's first 2 layers on the card against the CPU, at the bf16 bar
+    2e-2 * sqrt(d_model / 64); the VLM's and the encoder-decoder's float32
+    prefill against decode at full depth within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as mm
+    from repro_torch.serve import Engine
+
+    for name, cut, want in FAMILY_LMS:
+        t_model = time.perf_counter()
+        full = get_config(name)
+        cfg = dataclasses.replace(full, **cut)
+        if cut:
+            print(f"{name}: cut to {cut} of its {full.n_layers} layers and "
+                  f"{full.n_experts} experts, full width (FAMILY_LMS)",
+                  flush=True)
+        model = lm_model(torch, mm, cfg, want, label="LM path 7c")
+        rng = np.random.default_rng(0)
+        # a VLM's text is cut by the prefix, so that prefix and prompt
+        # (2,048 positions) pass the blockwise attention's tile asserts
+        lens = ENCDEC_LENS if cfg.enc_layers else tuple(
+            k - cfg.frontend_len for k in LM_LENS)
+        prompts = [rng.integers(0, cfg.vocab, k).astype(np.int32)
+                   for k in lens]
+        gen = torch.Generator("cuda").manual_seed(0)
+        front = src = None
+        if cfg.frontend and not cfg.enc_layers:
+            front = torch.randn((4, cfg.frontend_len, cfg.frontend_dim),
+                                generator=gen, device="cuda")
+        if cfg.enc_layers:
+            src = torch.randn((4, SRC_FRAMES, cfg.frontend_dim),
+                              generator=gen, device="cuda")
+        cache_len = max(lens) + LM_NEW + cfg.frontend_len
+        for impl in (("onehot", "gather") if name == "mixtral-8x22b"
+                     else (cfg.moe_impl,)):
+            c = dataclasses.replace(cfg, moe_impl=impl)
+            if cfg.family == "moe":
+                eng = Engine(c, model, batch=4, cache_len=cache_len,
+                             device="cuda")
+            else:
+                eng = PrefixEngine(torch, mm, c, model, cache_len,
+                                   frontend=front, src=src)
+            tag = f"{name} {impl} " if cfg.family == "moe" else f"{name} "
+            lm_serve_twice(np, torch, kops, mm, eng, c, prompts, [],
+                           kernels=(), label=tag)
+            del eng
+            torch.cuda.empty_cache()
+
+        bar = LM_BF16["atol"] * np.sqrt(cfg.d_model / 64)
+        toks = torch.as_tensor(prompts[-1][:64][None], device="cuda")
+        if cfg.family != "moe":
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            err = prefix_vs_decode(
+                torch, mm, mm.cast_for_compute(model, cfg32), cfg32, toks,
+                None if front is None else front[:1],
+                None if src is None else src[:1])
+            if err > LM_F32["atol"]:
+                fail(f"{name}: float32 prefill and decode part at full "
+                     f"depth: max abs err {err:.3e}")
+        two, cfg2 = first_layers(mm, model, cfg, 2)
+        del model
+        torch.cuda.empty_cache()
+        print(f"LM {name} 2-layer bf16 bar: {bar:.4f} (2e-2 * sqrt("
+              f"{cfg.d_model} / 64))", flush=True)
+        family_card_vs_cpu(torch, kops, mm, L, two, cfg2, toks,
+                           None if front is None else front[:1],
+                           None if src is None else src[:1], bar)
+        del two
+        torch.cuda.empty_cache()
+        print(f"phase 7c {name}: {time.perf_counter() - t_model:.3f} s",
+              flush=True)
 
 
 def k6_record(torch, kops, ref, args, launches, card_clock_mhz):
@@ -2368,6 +2791,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("distributed_path")
 
+    # ---- phase 6f: the paper's production dry run (2^25 rows) ----------
+    k4_dryrun = dryrun_path(np, torch, kops, ref, rec)
+    phase_done("dryrun_path")
+
     # ---- phase 7: the LM serving path (K6) -------------------------------
     k6_launches, k6_args = lm_path(np, torch, kops)
     phase_done("lm_path")
@@ -2375,6 +2802,10 @@ def main() -> int:
     # ---- phase 7b: the attention families (hybrid, dense) ----------------
     k6_hymba_launches, k6_hymba_args = attention_lm_path(np, torch, kops)
     phase_done("attention_lm_path")
+
+    # ---- phase 7c: the MoE, VLM and encoder-decoder families -------------
+    family_lm_path(np, torch, kops)
+    phase_done("family_lm_path")
 
     # ---- phase 8: kernels at their paths' shapes -------------------------
     records = kernel_records(torch, vf, ref, hier, idx, val, counts,
@@ -2387,6 +2818,7 @@ def main() -> int:
     by_name["spmv_ell_batched"]["sharded"] = k1_shard_record(
         torch, vf, ref, idx, val, k1_sharded)
     by_name["similarity_mark"]["sharded"] = {"launches": k4_sharded}
+    by_name["similarity_mark"]["dryrun"] = k4_dryrun
     clock = max_sm_clock_mhz()
     k6 = k6_record(torch, kops, ref, k6_args, k6_launches, clock)
     hymba = k6_record(torch, kops, ref, k6_hymba_args, k6_hymba_launches,

@@ -6,7 +6,8 @@ accepts dashed or underscored ids.  ``reduced(cfg)`` shrinks any config to a
 CPU-smokeable size of the same family (small layers/width, few experts, tiny
 vocab) — used by the parity tests.  The full configs are built on the card
 (``chip_smoke.py``) or, for their shapes alone, on the ``meta`` device.
-The graph workload's config (``pdgrass_graph``) is not copied yet.
+The graph workload's config is ``repro_torch.configs.pdgrass_graph``
+(``PdGrassConfig``, ``CONFIG``), outside ``ARCHS``: it is not an LM.
 """
 from __future__ import annotations
 

@@ -167,92 +167,132 @@ def recover_outer(sharded: ShardedProblem, mesh, axis: str = "data",
 # Inner engine: one giant subtask sharded over the mesh
 # ---------------------------------------------------------------------------
 
-def _inner_round_engine(sig_u, sig_v, beta, seg, n_sh: int,
-                        block_size: int):
-    """Round engine for one subtask whose rows are sharded ``[P, m_loc]``.
+class InnerRound(NamedTuple):
+    """What a round of the inner engine needs beside the status: the
+    constants of its shapes, made once by :func:`inner_init`."""
 
-    One ``all_gather`` of the candidate pack a round and one ``psum`` of
-    the open rows (the loop test, a host sync).  ``n_sh`` is the static
-    shard count, read from the mesh by :func:`recover_inner`.
+    n_sh: int
+    block_size: int
+    arange: torch.Tensor     # [m_loc] int32 row ids
+    later: torch.Tensor      # [B, B] bool, column after row
+    eseg: torch.Tensor       # [P, m_loc] int32: 0 on edges, -1 on padding
+    cseg: torch.Tensor       # [B] int32 zeros: the candidates' subtask
 
-    The marking pass marks each shard's rows against the block's recovered
-    candidates: the function of K4 with every row in one subtask, so it
-    runs through :func:`repro_torch.kernels.ops.similarity_mark`, which
-    launches K4 on the card and runs its plain version on the CPU."""
+
+def inner_init(seg, n_sh: int, block_size: int):
+    """The engine's first status ``[P, m_loc]`` int8 (open on edge rows,
+    skipped on padding) and its :class:`InnerRound`."""
     m_loc = seg.shape[1]
     dev = seg.device
     B = block_size
     is_edge = seg >= 0
     status = torch.where(is_edge, STATUS_OPEN, STATUS_SKIPPED).to(torch.int8)
-    arange = torch.arange(m_loc, dtype=torch.int32, device=dev)
-    later = (torch.arange(B, device=dev)[None, :]
-             > torch.arange(B, device=dev)[:, None])
     # every row in subtask 0, padding in none (K4's same-subtask test)
-    eseg = torch.where(is_edge, 0, -1).to(torch.int32)
-    cseg = torch.zeros((B,), dtype=torch.int32, device=dev)
+    return status, InnerRound(
+        n_sh=n_sh, block_size=B,
+        arange=torch.arange(m_loc, dtype=torch.int32, device=dev),
+        later=(torch.arange(B, device=dev)[None, :]
+               > torch.arange(B, device=dev)[:, None]),
+        eseg=torch.where(is_edge, 0, -1).to(torch.int32),
+        cseg=torch.zeros((B,), dtype=torch.int32, device=dev))
+
+
+def inner_open(status) -> bool:
+    """The loop test: a ``psum`` of every shard's open rows (int32, as the
+    reference's), read on the host."""
+    return bool(psum((status == STATUS_OPEN).sum(dim=1, dtype=torch.int32))
+                > 0)                                            # host sync
+
+
+def inner_round(sig_u, sig_v, beta, status, r: InnerRound):
+    """One round of the inner engine over the stacked shards ``[P,
+    m_loc]``: the block of the next ``B`` open rows by global rank, one
+    ``all_gather`` of its candidate pack (and one of each shard's open
+    count), its resolution, and every shard's rows marked against its
+    recovered candidates.  Returns (the new status, the block's marking
+    betas ``[B]``: a recovered candidate's beta, else -1).
+
+    The marking pass marks each shard's rows against the block's recovered
+    candidates: the function of K4 with every row in one subtask, so it
+    runs through :func:`repro_torch.kernels.ops.similarity_mark`, which
+    launches K4 on the card and runs its plain version on the CPU."""
+    n_sh, B, m_loc = r.n_sh, r.block_size, status.shape[1]
+    dev = status.device
+    avail = status == STATUS_OPEN
+    ones = avail.to(torch.int32)
+    local_cum = torch.cumsum(ones, dim=1, dtype=torch.int32)
+    # exclusive prefix over the shards of their open counts
+    all_tot = all_gather(local_cum[:, -1])                     # [n_sh]
+    base = torch.cumsum(all_tot, 0, dtype=torch.int32) - all_tot
+    rank = base[:, None] + local_cum - ones                    # global rank
+    cand = avail & (rank < B)
+
+    # each shard's candidates (at most B), then one all_gather
+    cidx = torch.sort(torch.where(cand, r.arange, m_loc), dim=1)[0][:, :B]
+    cvalid = cidx < m_loc
+    ci = torch.where(cvalid, cidx, 0).long()
+    crank = torch.where(cvalid, torch.gather(rank, 1, ci), B)
+    rows = torch.arange(n_sh, device=dev)[:, None]
+    pack = (sig_u[rows, ci], sig_v[rows, ci],
+            torch.where(cvalid, torch.gather(beta, 1, ci), -1), crank)
+    g_su, g_sv, g_beta, g_rank = (all_gather(x, tiled=True)
+                                  for x in pack)              # [n_sh * B]
+    # order by global rank; invalid slots have rank B and sort last
+    order = torch.argsort(g_rank, stable=True)[:B]
+    k_su, k_sv = g_su[order], g_sv[order]
+    k_beta, k_rank = g_beta[order], g_rank[order]
+    k_valid = k_beta >= 0
+
+    # the in-block resolution, replicated: every shard computes the
+    # same bits, so it runs once
+    sim = strict_similarity_matrix(k_su, k_sv, k_beta, k_su, k_sv)
+    sim = sim & r.later & k_valid[:, None] & k_valid[None, :]
+    recovered_k = k_valid & ~rec_mod._resolve_block(sim)
+
+    # write back the statuses of each shard's candidates, by rank
+    hit = crank[:, :, None] == k_rank[None, None, :]          # [P, B, B]
+    rec_my = (hit & recovered_k[None, None, :]).any(dim=2)
+    new = torch.where(rec_my, STATUS_RECOVERED,
+                      STATUS_SKIPPED).to(torch.int8)
+    mark_beta = torch.where(recovered_k, k_beta, -1)          # -1 disables
+    out = []
+    for s in range(n_sh):
+        st = scatter_drop(status[s], cidx[s], new[s], cvalid[s])
+        kill = kops.similarity_mark(k_su, k_sv, mark_beta, r.cseg,
+                                    sig_u[s], sig_v[s], r.eseg[s])
+        kill = kill & (st == STATUS_OPEN)
+        out.append(torch.where(kill, STATUS_SKIPPED, st).to(torch.int8))
+    return torch.stack(out), mark_beta
+
+
+def _inner_round_engine(sig_u, sig_v, beta, seg, n_sh: int,
+                        block_size: int):
+    """Round engine for one subtask whose rows are sharded ``[P, m_loc]``:
+    :func:`inner_round` while :func:`inner_open` finds an open row (one
+    host sync a round).  ``n_sh`` is the static shard count, read from the
+    mesh by :func:`recover_inner`.  Returns (status ``[P, m_loc]`` int8,
+    rounds)."""
+    status, r = inner_init(seg, n_sh, block_size)
     rounds = 0
-    while bool(psum((status == STATUS_OPEN).sum(dim=1)) > 0):  # host sync
-        avail = status == STATUS_OPEN
-        ones = avail.to(torch.int32)
-        local_cum = torch.cumsum(ones, dim=1, dtype=torch.int32)
-        # exclusive prefix over the shards of their open counts
-        all_tot = all_gather(local_cum[:, -1])                 # [n_sh]
-        base = torch.cumsum(all_tot, 0, dtype=torch.int32) - all_tot
-        rank = base[:, None] + local_cum - ones                # global rank
-        cand = avail & (rank < B)
-
-        # each shard's candidates (at most B), then one all_gather
-        cidx = torch.sort(torch.where(cand, arange, m_loc), dim=1)[0][:, :B]
-        cvalid = cidx < m_loc
-        ci = torch.where(cvalid, cidx, 0).long()
-        crank = torch.where(cvalid, torch.gather(rank, 1, ci), B)
-        rows = torch.arange(n_sh, device=dev)[:, None]
-        pack = (sig_u[rows, ci], sig_v[rows, ci],
-                torch.where(cvalid, torch.gather(beta, 1, ci), -1), crank)
-        g_su, g_sv, g_beta, g_rank = (all_gather(x, tiled=True)
-                                      for x in pack)          # [n_sh * B]
-        # order by global rank; invalid slots have rank B and sort last
-        order = torch.argsort(g_rank, stable=True)[:B]
-        k_su, k_sv = g_su[order], g_sv[order]
-        k_beta, k_rank = g_beta[order], g_rank[order]
-        k_valid = k_beta >= 0
-
-        # the in-block resolution, replicated: every shard computes the
-        # same bits, so it runs once
-        sim = strict_similarity_matrix(k_su, k_sv, k_beta, k_su, k_sv)
-        sim = sim & later & k_valid[:, None] & k_valid[None, :]
-        recovered_k = k_valid & ~rec_mod._resolve_block(sim)
-
-        # write back the statuses of each shard's candidates, by rank
-        hit = crank[:, :, None] == k_rank[None, None, :]      # [P, B, B]
-        rec_my = (hit & recovered_k[None, None, :]).any(dim=2)
-        new = torch.where(rec_my, STATUS_RECOVERED,
-                          STATUS_SKIPPED).to(torch.int8)
-        mark_beta = torch.where(recovered_k, k_beta, -1)      # -1 disables
-        out = []
-        for s in range(n_sh):
-            st = scatter_drop(status[s], cidx[s], new[s], cvalid[s])
-            kill = kops.similarity_mark(k_su, k_sv, mark_beta, cseg,
-                                        sig_u[s], sig_v[s], eseg[s])
-            kill = kill & (st == STATUS_OPEN)
-            out.append(torch.where(kill, STATUS_SKIPPED, st).to(torch.int8))
-        status = torch.stack(out)
+    while inner_open(status):
+        status, _ = inner_round(sig_u, sig_v, beta, status, r)
         rounds += 1
     return status, rounds
 
 
-def recover_inner(sig_u, sig_v, beta, seg, mesh, axis: str = "data",
+def recover_inner(sig_u, sig_v, beta, seg, mesh, axis="data",
                   block_size: int = 32, chunk: int = 2048):
     """The inner engine for one giant subtask, its rows (a multiple of the
-    shard count) split contiguously over ``axis``.  Returns (status
-    ``[m]`` int8, rounds).
+    shard count) split contiguously over ``axis``: one axis name, or a
+    tuple of them flattened in order, as the reference's ``P(axes)``
+    flattens them.  Returns (status ``[m]`` int8, rounds).
 
     The engine reads its shard count from the mesh, a static int, and
     never from a collective.  ``chunk`` is the reference's marking tile;
     K4 and its plain version tile on their own, so it does not change the
     result."""
     del chunk
-    n_sh = int(mesh.shape[axis])
+    n_sh = _mesh_shards(mesh, axis)
 
     def shard(x):
         return x.reshape((n_sh, -1) + tuple(x.shape[1:]))

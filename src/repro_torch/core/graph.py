@@ -126,15 +126,19 @@ def build_graph(n: int, src, dst, weight) -> Graph:
 
 
 def is_connected(g: Graph) -> bool:
+    """Breadth-first from vertex 0, one frontier at a time: every
+    frontier vertex's adjacency range gathered at once."""
     seen = np.zeros(g.n, dtype=bool)
-    stack = [0]
     seen[0] = True
-    while stack:
-        u = stack.pop()
-        nbrs = g.adj[g.indptr[u]:g.indptr[u + 1]]
-        new = nbrs[~seen[nbrs]]
-        seen[new] = True
-        stack.extend(new.tolist())
+    frontier = np.zeros(1, dtype=np.int64)
+    while frontier.size:
+        starts = g.indptr[frontier]
+        lens = g.indptr[frontier + 1] - starts
+        offs = np.cumsum(lens) - lens
+        nbrs = g.adj[np.repeat(starts - offs, lens)
+                     + np.arange(int(lens.sum()))]
+        frontier = np.unique(nbrs[~seen[nbrs]]).astype(np.int64)
+        seen[frontier] = True
     return bool(seen.all())
 
 

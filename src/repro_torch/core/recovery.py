@@ -112,7 +112,13 @@ def _pair_match(sig_a, sig_b, beta_a):
 # ---------------------------------------------------------------------------
 
 def recover_serial(prob: RecoveryProblem) -> np.ndarray:
-    """Greedy in-order recovery per subtask; returns status[m] (numpy)."""
+    """Greedy in-order recovery per subtask; returns status[m] (numpy).
+
+    Each recovered row ``i`` skips every later open row of its subtask
+    that it strictly-similarity marks: ``(uu & vv) | (uv & vu)``, each a
+    test of some ancestor pair ``(a, b)`` with ``a + b <= beta[i]`` equal.
+    The tests take only those pairs, one signature column at a time, and
+    ``vv`` (``vu``) only on the rows that ``uu`` (``uv``) found."""
     sig_u = prob.sig_u.cpu().numpy()
     sig_v = prob.sig_v.cpu().numpy()
     beta = prob.beta.cpu().numpy()
@@ -124,11 +130,17 @@ def recover_serial(prob: RecoveryProblem) -> np.ndarray:
     bounds = np.flatnonzero(np.diff(np.concatenate([[-2], seg])) != 0)
     bounds = np.concatenate([bounds, [m]])
     c1 = sig_u.shape[1]
-    apb = _apb_table(c1)
+    cols_u, cols_v = np.ascontiguousarray(sig_u.T), np.ascontiguousarray(
+        sig_v.T)                                          # [c1, m]
 
-    def in_hood(sig_x, sig_ys, b):
-        eq = sig_x[None, :, None] == sig_ys[:, None, :]
-        return np.any(eq & (apb[None] <= b), axis=(1, 2))
+    def in_hood(sig_x, ys, b):
+        """[R]: some ancestor pair of ``sig_x`` and a column of ``ys [c1,
+        R]`` with ``a + bb <= b`` is equal."""
+        hit = np.zeros(ys.shape[1], dtype=bool)
+        for a in range(min(b, c1 - 1) + 1):
+            for bb in range(min(b - a, c1 - 1) + 1):
+                hit |= ys[bb] == sig_x[a]
+        return hit
 
     for s in range(len(bounds) - 1):
         lo, hi = bounds[s], bounds[s + 1]
@@ -142,12 +154,13 @@ def recover_serial(prob: RecoveryProblem) -> np.ndarray:
             rest = rest[status[rest] == STATUS_OPEN]
             if rest.size == 0:
                 continue
-            b = beta[i]
-            uu = in_hood(sig_u[i], sig_u[rest], b)
-            vv = in_hood(sig_v[i], sig_v[rest], b)
-            uv = in_hood(sig_u[i], sig_v[rest], b)
-            vu = in_hood(sig_v[i], sig_u[rest], b)
-            sim = (uu & vv) | (uv & vu)
+            b = int(beta[i])
+            yu, yv = cols_u[:, rest], cols_v[:, rest]
+            sim = np.zeros(rest.size, dtype=bool)
+            uu = np.flatnonzero(in_hood(sig_u[i], yu, b))
+            sim[uu[in_hood(sig_v[i], yv[:, uu], b)]] = True
+            uv = np.flatnonzero(in_hood(sig_u[i], yv, b))
+            sim[uv[in_hood(sig_v[i], yu[:, uv], b)]] = True
             status[rest[sim]] = STATUS_SKIPPED
     return status
 

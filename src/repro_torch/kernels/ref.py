@@ -109,7 +109,7 @@ def spmv_ell_ref(idx, val, x):
     return acc
 
 
-# bool cells of one chunk's [K, rows, c1, c1] match table (64 Mi)
+# cells of one chunk's [K, rows, c1] lookup (64 Mi)
 _SIM_CHUNK_CELLS = 1 << 26
 
 
@@ -117,30 +117,58 @@ def similarity_mark_ref(csu, csv, cbeta, cseg, esu, esv, eseg):
     """``kill[j]``: some candidate ``k`` of edge ``j``'s subtask
     (``cseg[k] == eseg[j]``) strictly-similarity-marks it.
 
-    The reference's broadcast (``repro/kernels/ref.py``) over chunks of edge
-    rows: membership is ``exists (a, b): sig_x[k, a] == sig_y[j, b]`` with
-    ``a + b <= cbeta[k]``, and, as in the kernel, the pairs with
-    ``a + b > c1 - 1`` are skipped (``beta*`` never exceeds ``c``, so the
-    skip changes nothing on the engine's inputs).  The rows run in chunks
-    so the ``[K, rows, c1, c1]`` temporaries stay bounded at any ``m``."""
-    K, c1 = csu.shape
+    Membership as in the reference's broadcast (``repro/kernels/ref.py``):
+    ``exists (a, b): sig_x[k, a] == sig_y[j, b]`` with ``a + b <=
+    cbeta[k]``, and, as in the kernel, the pairs with ``a + b > c1 - 1``
+    are skipped (``beta*`` never exceeds ``c``, so the skip changes
+    nothing on the engine's inputs).  Such a pair exists exactly when the
+    least ``a`` at which ``sig_x[k]`` holds ``sig_y[j, b]`` satisfies it,
+    so each candidate keeps a table of its values' least positions and a
+    row looks each of its ``c1`` values up there: ``[K, rows, c1]`` cells
+    where the broadcast has ``[K, rows, c1, c1]``.  The rows run in
+    chunks so the temporaries stay bounded at any ``m``.  A candidate with
+    ``cbeta < 0`` admits no pair and marks nothing, so only the others
+    enter the tables."""
     m = esu.shape[0]
-    a = torch.arange(c1, device=csu.device)
-    apb = a[:, None] + a[None, :]
-    # [K, c1, c1]: pair (a, b) counts for candidate k
-    ok = (apb[None] <= cbeta[:, None, None]) & (apb <= c1 - 1)[None]
-    rows_per_chunk = max(1, _SIM_CHUNK_CELLS // max(1, K * c1 * c1))
-    out = torch.zeros((m,), dtype=torch.bool, device=esu.device)
+    live = cbeta >= 0
+    if not bool(live.all()):
+        csu, csv, cbeta, cseg = csu[live], csv[live], cbeta[live], cseg[live]
+    K, c1 = csu.shape
+    dev = esu.device
+    out = torch.zeros((m,), dtype=torch.bool, device=dev)
+    if K == 0:
+        return out
+    # the candidates' values (sorted), and per candidate and value the
+    # least position in its signature; column U and absent values: c1
+    vals = torch.unique(torch.cat([csu.flatten(), csv.flatten()]))
+    U = vals.numel()
+    pos = torch.arange(c1, dtype=torch.int32, device=dev).expand(K, c1)
 
-    def match(sa, sb):  # [K, c1] x [R, c1] -> [K, R]
-        eq = sa[:, None, :, None] == sb[None, :, None, :]
-        return (eq & ok[:, None]).flatten(-2).any(-1)
+    def least_pos(sa):                                  # [K, U + 1]
+        t = torch.full((K, U + 1), c1, dtype=torch.int32, device=dev)
+        return t.scatter_reduce_(1, torch.searchsorted(vals, sa), pos,
+                                 reduce="amin")
+
+    tu, tv = least_pos(csu), least_pos(csv)
+    # a + b <= min(beta, c1 - 1)  <=>  a <= lim - b
+    lim = torch.clamp(cbeta, max=c1 - 1).to(torch.int32)
+    rows_per_chunk = max(1, _SIM_CHUNK_CELLS // (K * c1))
+
+    def lookup(sb):                 # [R, c1] -> value index, U if absent
+        j = torch.searchsorted(vals, sb).clamp_(max=U - 1)
+        return torch.where(vals[j] == sb, j, U).flatten()
 
     for lo in range(0, m, rows_per_chunk):
         hi = min(m, lo + rows_per_chunk)
-        eu, ev = esu[lo:hi], esv[lo:hi]
-        sim = ((match(csu, eu) & match(csv, ev))
-               | (match(csu, ev) & match(csv, eu)))
+        ju, jv = lookup(esu[lo:hi]), lookup(esv[lo:hi])
+        room = (lim[:, None, None] - torch.arange(
+            c1, dtype=torch.int32, device=dev)).expand(K, hi - lo, c1)
+
+        def match(t, j):                                # [K, R]
+            return (t[:, j].view(K, hi - lo, c1) <= room).any(-1)
+
+        sim = ((match(tu, ju) & match(tv, jv))
+               | (match(tu, jv) & match(tv, ju)))
         sim &= cseg[:, None] == eseg[None, lo:hi]
         out[lo:hi] = sim.any(dim=0)
     return out

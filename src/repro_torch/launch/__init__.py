@@ -1,11 +1,16 @@
 """repro_torch.launch: where the port's work runs, and what it costs.
 
-  * :mod:`repro_torch.launch.mesh` — :class:`Mesh` and :func:`make_mesh`,
-    the named shard axes the distributed planes run over.
+  * :mod:`repro_torch.launch.mesh` — :class:`Mesh`, :func:`make_mesh`,
+    :func:`make_production_mesh` and :func:`make_mesh_for`, the named
+    shard axes the distributed planes run over.
   * :mod:`repro_torch.launch.roofline` — the H100's peaks, the
     reference's byte/flop models of the solver, and each kernel's launch
-    bound.
+    bound; the collective term and the inner recovery round's model.
+  * :mod:`repro_torch.launch.dryrun_pdgrass` — the paper's production
+    job, rounds of the inner engine at 2^25 off-tree rows on the
+    production mesh.
 """
-from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.launch.mesh import (Mesh, make_mesh, make_mesh_for,
+                                     make_production_mesh)
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "make_mesh", "make_mesh_for", "make_production_mesh"]

@@ -8,9 +8,10 @@ as the reference's is: one process drives every shard.
 Every shard of a mesh lives on one device.  The shards exchange data only
 through :mod:`repro_torch.core.collectives`, so a transport across cards
 can take their place later without touching the algorithms (ROADMAP
-queue 1, "mesh across cards").  The reference's ``make_production_mesh``
-and ``make_mesh_for`` encode a TPU pod's topology; they wait for the
-launch slice (ROADMAP queue 1, "Launch tools").
+queue 1, "mesh across cards").  :func:`make_production_mesh` and
+:func:`make_mesh_for` take the reference's shapes, axis names and
+halving loop: the production job's 256 or 512 shards, as shards on one
+device.
 """
 from __future__ import annotations
 
@@ -78,3 +79,25 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
                 f"one device")
         device = devs.pop()
     return Mesh(shape, axes, device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """The production mesh: ``(16, 16)`` shards over ``("data", "model")``,
+    or with ``multi_pod`` ``(2, 16, 16)`` over ``("pod", "data", "model")``
+    (the reference's 256- and 512-chip meshes), on ``device``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_mesh_for(n_devices: int, model_par: int = None,
+                  device="cuda") -> Mesh:
+    """A ``(data, model)`` mesh of ``n_devices`` shards: ``model`` takes
+    ``model_par`` shards (default ``min(16, n_devices)``), halved until it
+    divides ``n_devices``, and ``data`` the rest."""
+    if model_par is None:
+        model_par = min(16, n_devices)
+    while n_devices % model_par:
+        model_par //= 2
+    return make_mesh((n_devices // model_par, model_par),
+                     ("data", "model"), device)

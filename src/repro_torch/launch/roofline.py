@@ -24,13 +24,21 @@ functions live here, and they count different things on purpose:
   time.
 
 Peaks are the H100 SXM's (NVIDIA's data sheet, dense rates, at the full
-700 W power limit): HBM3 at 3.35 TB/s and 67 TFLOP/s of float32 outside
-the tensor cores.  Data float32 and indices int32 unless a function says
-otherwise.
+700 W power limit): HBM3 at 3.35 TB/s, 67 TFLOP/s of float32 outside
+the tensor cores, and NVLink 4 at 450 GB/s a direction (half the data
+sheet's 900 GB/s, which counts both directions).  Data float32 and
+indices int32 unless a function says otherwise.
+
+The paper's production job (:mod:`repro_torch.launch.dryrun_pdgrass`)
+reads three roofline terms a round of the inner recovery engine, as the
+reference's ``analyze`` does: :func:`inner_round_work` (operations and
+bytes of one shard's round) and :func:`collective_bytes` (the counted
+collectives, :func:`repro_torch.core.collectives.count_collectives`),
+turned into seconds by :func:`roofline_terms`.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -38,6 +46,10 @@ HBM_BW = 3.35e12           # bytes/s, H100 SXM HBM3
 F32_FLOPS = 67e12          # float32 FLOP/s outside the tensor cores
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 EXP_PER_CLOCK_SM = 16      # expf results an SM issues a clock (its SFUs)
+# NVLink 4 of an H100 SXM, one direction (900 GB/s both ways).  A least
+# time: a mesh of 256 or 512 cards spans nodes, and across them the
+# network is slower than NVLink.
+NVLINK_BW = 450e9          # bytes/s
 
 _F32 = 4
 _I32 = 4
@@ -273,3 +285,58 @@ def similarity_mark_launch(args):
     rows_k = seg_rows[(cseg - lo).long()]              # rows of k's subtask
     cells = float((rows_k * pairs).sum())
     return nbytes, 4.0 * cells, sig_rows, cells
+
+
+# ---------------------------------------------------------------------------
+# The production job: one round of the inner recovery engine
+# ---------------------------------------------------------------------------
+
+def collective_bytes(count) -> Tuple[int, Dict[str, int]]:
+    """Per-shard result bytes of the collectives in ``count`` (a
+    :class:`repro_torch.core.collectives.CollectiveCount`), in all and by
+    kind: the reference's ``collective_bytes`` reads them from the
+    compiled HLO, the port counts them as they run."""
+    return count.total, dict(count.per_kind)
+
+
+def inner_round_work(m_loc: int, n_sh: int, block_size: int, c1: int,
+                     mark_beta):
+    """Operations and bytes of one shard's round of the inner engine
+    (``repro_torch.core.distributed.inner_round``) on ``m_loc`` rows, each
+    input read once and each output written once.
+
+    Bytes: the status read and written (int8), the rows' two signatures
+    and subtask ids (K4 reads every row of the one subtask), the block's
+    candidate pack read from the shard's rows, and the gathered packs of
+    all ``n_sh`` shards with their open counts (int32) landing in memory.
+    Operations: the 4 compares of each (c1)^2-grid pair ``a + b <=
+    min(beta, c1 - 1)`` of every (row, recovered candidate) pair, as
+    :func:`similarity_mark_launch` counts them, and of every (candidate,
+    candidate) pair of the in-block resolution at the full grid (``c1 (c1
+    + 1) / 2`` pairs, ``beta >= c1 - 1``).  ``mark_beta`` is the block's
+    marking betas (``-1`` where a candidate was not recovered), the
+    round's own data."""
+    B = block_size
+    full = c1 * (c1 + 1) // 2
+    a = torch.arange(c1)
+    apb = a[:, None] + a[None, :]
+    mb = torch.as_tensor(mark_beta).cpu()
+    pairs = int((apb[None] <= torch.clamp(mb, max=c1 - 1)[:, None, None])
+                .flatten(1).sum())                     # 0 where beta < 0
+    ops = 4 * m_loc * pairs + 4 * B * B * full
+    pack = B * (2 * c1 + 2) * _I32
+    nbytes = (2 * m_loc + m_loc * (2 * c1 + 1) * _I32 + pack
+              + n_sh * (pack + _I32))
+    return float(ops), float(nbytes)
+
+
+def roofline_terms(flops: float, bytes_hbm: float, bytes_coll: float):
+    """Seconds of the three terms, as the reference's ``analyze`` forms
+    them with the H100's rates: ``flops`` over :data:`F32_FLOPS`,
+    ``bytes_hbm`` over :data:`HBM_BW`, ``bytes_coll`` over
+    :data:`NVLINK_BW`; and the largest term's name."""
+    terms = {"compute": flops / F32_FLOPS, "memory": bytes_hbm / HBM_BW,
+             "collective": bytes_coll / NVLINK_BW}
+    return dict(t_compute=terms["compute"], t_memory=terms["memory"],
+                t_collective=terms["collective"],
+                bottleneck=max(terms, key=terms.get))

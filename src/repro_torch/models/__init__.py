@@ -1,11 +1,14 @@
-"""Models of the port: the ``ssm``, ``hybrid`` and ``dense`` families for
-serving (falcon-mamba-7b, hymba-1.5b, qwen3-4b, gemma2-2b, phi3-medium-14b,
-starcoder2-15b).
+"""Models of the port, every family for serving: ``ssm``
+(falcon-mamba-7b), ``hybrid`` (hymba-1.5b), ``dense`` (qwen3-4b,
+gemma2-2b, phi3-medium-14b, starcoder2-15b), ``moe`` (mixtral-8x22b,
+arctic-480b), ``vlm`` (phi-3-vision-4.2b), ``encdec``
+(seamless-m4t-medium).
 
   config.py  — ``ModelConfig``, the port's copy of the reference's.
-  layers.py  — ``rmsnorm``, ``rope``, blockwise and decode attention, the
-               MLPs and the Mamba1 block (K6 carries its scan on the card);
-               ``Attention``, ``MLP``, ``MambaMixer``.
+  layers.py  — ``rmsnorm``, ``rope``, blockwise, decode, encoder and
+               cross-attention, the MLPs, the MoE (``moe_ffn``) and the
+               Mamba1 block (K6 carries its scan on the card);
+               ``Attention``, ``MLP``, ``MoE``, ``MambaMixer``.
   model.py   — ``LM`` (alias ``MambaLM``), ``init_params``, ``prefill``,
                ``decode_step``.
   weights.py — ``params_from_reference``: the reference's weights, unstacked.

@@ -1,10 +1,10 @@
-"""Model layers of the port: norms, rope, attention, MLPs and Mamba1.
+"""Model layers of the port: norms, rope, attention, MLPs, MoE and Mamba1.
 
-The port of ``repro.models.layers`` for the ``ssm``, ``hybrid`` and
-``dense`` families: pure functions over a dict of one layer's weights, as
-the reference's, and the ``nn.Module``s that hold them (:class:`Attention`,
-:class:`MLP`, :class:`MambaMixer`).  MoE, cross- and encoder attention and
-the training forward are not ported yet (ROADMAP queue 1, item 1).
+The port of ``repro.models.layers`` for serving every family: pure
+functions over a dict of one layer's weights, as the reference's, and the
+``nn.Module``s that hold them (:class:`Attention`, :class:`MLP`,
+:class:`MoE`, :class:`MambaMixer`).  The training forward
+(``attention_train``) is not ported yet (ROADMAP queue 1, training).
 
 Attention is plain PyTorch: the reference computes it outside any Pallas
 kernel, and its online softmax over blocks rounds otherwise than one
@@ -22,7 +22,9 @@ exact in float32, and the CPU scan equals K6 bit for bit.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -188,6 +190,30 @@ def attention_decode(x, p, cfg: ModelConfig, kind: int, cache_k, cache_v,
     return out, cache_k, cache_v, cache_pos
 
 
+def cross_attention(x, p, cfg: ModelConfig, enc_k, enc_v):
+    """Decoder-to-encoder attention, blockwise and unmasked (kind 2).
+    x [B,S,d]; ``enc_k``/``enc_v`` [B,Ss,KV,hd], computed once a
+    generation from the encoder's output."""
+    B, S, d = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"].to(x.dtype).reshape(d, H * hd)).view(B, S, H, hd)
+    dev = x.device
+    o = blockwise_attention(q, enc_k, enc_v, torch.arange(S, device=dev),
+                            torch.arange(enc_k.shape[1], device=dev), cfg, 2)
+    return o @ p["wo"].to(x.dtype)
+
+
+def encoder_attention(x, p, cfg: ModelConfig):
+    """Bidirectional self-attention of the encoder (kind 2), with rope."""
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)
+    q, k, v = _qkv(x, p, cfg)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    o = blockwise_attention(q, k, v, pos, pos, cfg, 2)
+    return o @ p["wo"].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -207,6 +233,135 @@ def mlp(x, p, cfg: ModelConfig):
     else:
         raise ValueError(cfg.mlp_type)
     return h @ p["w2"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE (GShard grouped capacity dispatch)
+# ---------------------------------------------------------------------------
+
+class MoEOut(NamedTuple):
+    y: torch.Tensor
+    aux_loss: torch.Tensor
+
+
+class MoERoute(NamedTuple):
+    """A group's routing: ``gate_w``/``gate_i`` [ng, G, k] (softmaxed
+    weights, expert ids), ``pos``/``keep`` [ng, G*k, E] (each (token,
+    slot) pair's capacity position in each expert, token-major, and
+    whether it holds an expert's slot below the capacity), the capacity
+    ``C`` and the aux loss."""
+
+    gate_w: torch.Tensor
+    gate_i: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    C: int
+    aux_loss: torch.Tensor
+
+
+def one_hot(x, n: int, dtype):
+    """``jax.nn.one_hot``: all zeros where ``x`` lies outside ``[0, n)``
+    (``F.one_hot`` raises there)."""
+    return (x[..., None] == torch.arange(n, device=x.device)).to(dtype)
+
+
+def top_k(x, k: int):
+    """``jax.lax.top_k`` over the last axis: the ``k`` largest, descending,
+    the lower index first among equal values.  A stable descending sort
+    keeps equal values in index order; ``torch.topk`` promises no order
+    among ties on CUDA."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(logits, cfg: ModelConfig) -> MoERoute:
+    """Router top-k, capacity positions and the Switch aux loss over
+    float32 ``logits`` [ng, G, E]."""
+    ng, G, E = logits.shape
+    k = cfg.top_k
+    C = max(int(np.ceil(G * k * cfg.capacity_factor / E)), 1)
+    gate_w, gate_i = top_k(logits, k)                      # [ng,G,k]
+    gate_w = torch.softmax(gate_w, dim=-1)
+    # aux load-balance loss (Switch): E * mean_e(frac_tokens * mean_prob)
+    probs = torch.softmax(logits, dim=-1)
+    frac_tok = one_hot(gate_i[..., 0], E, torch.float32).mean(dim=1)
+    frac_prob = probs.mean(dim=1)
+    aux = E * torch.mean(torch.sum(frac_tok * frac_prob, -1))
+    # capacity positions over flattened (token, slot) pairs, token-major
+    af = one_hot(gate_i, E, torch.int32).reshape(ng, G * k, E)
+    pos = torch.cumsum(af, dim=1, dtype=torch.int32) - af
+    keep = (pos < C) & (af > 0)
+    return MoERoute(gate_w, gate_i, pos, keep, C, aux)
+
+
+def _expert_compute(xe, p, cfg: ModelConfig):
+    """xe [g,E,C,d] -> ye [g,E,C,d] through each expert's FFN."""
+    w1 = p["w1"].to(xe.dtype)                              # [E,d,f]
+    w2 = p["w2"].to(xe.dtype)                              # [E,f,d]
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        act = F.silu if cfg.mlp_type == "swiglu" else _gelu
+        h = act(torch.einsum("gecd,edf->gecf", xe, w1))
+        h = h * torch.einsum("gecd,edf->gecf", xe, p["w3"].to(xe.dtype))
+    else:
+        h = _gelu(torch.einsum("gecd,edf->gecf", xe, w1))
+    return torch.einsum("gecf,efd->gecd", h, w2)
+
+
+def moe_ffn(x, p, cfg: ModelConfig) -> MoEOut:
+    """x [B,S,d] -> [B,S,d].  Router top-k and capacity-limited dispatch
+    over groups of ``G = min(moe_group, B*S)`` tokens, each expert taking
+    at most ``C = ceil(G k capacity_factor / E)`` (token, slot) pairs in
+    token order; the rest are dropped (their slot adds nothing).  So a
+    token's output depends on the other tokens of its group.
+
+    Two dispatch forms, as the reference's: ``moe_impl="onehot"`` (GShard:
+    einsums against one-hot dispatch and combine tensors) and
+    ``"gather"`` (slot tables: gather the tokens' rows into [E, C, d] and
+    gather each (token, slot)'s expert row back).  Plain PyTorch: the
+    reference computes both outside any kernel."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    G = min(cfg.moe_group, T)
+    assert T % G == 0, (T, G)
+    ng = T // G
+    xt = x.reshape(ng, G, d)
+    logits = (xt @ p["router"].to(x.dtype)).float()
+    r = moe_route(logits, cfg)
+    C = r.C
+
+    if cfg.moe_impl == "gather":
+        gi = r.gate_i.reshape(ng, G * k)
+        pos_tk = torch.gather(r.pos, 2, gi[..., None])[..., 0]
+        keep_tk = torch.gather(r.keep, 2, gi[..., None])[..., 0]
+        # slot tables: slot_token[g, e, c] = the token feeding that slot
+        tok = (torch.arange(G * k, device=x.device) // k).expand(ng, G * k)
+        g_idx = torch.arange(ng, device=x.device)[:, None].expand(ng, G * k)
+        slot_token = torch.zeros((ng, E, C), dtype=torch.int64,
+                                 device=x.device)
+        slot_token[g_idx[keep_tk], gi[keep_tk], pos_tk[keep_tk].long()] = \
+            tok[keep_tk]
+        xe = torch.gather(xt, 1, slot_token.reshape(ng, E * C, 1)
+                          .expand(ng, E * C, d)).reshape(ng, E, C, d)
+        ye = _expert_compute(xe, p, cfg)
+        # combine: each (token, slot)'s expert row
+        idx = torch.where(keep_tk, gi * C + torch.clamp(pos_tk, max=C - 1), 0)
+        rows = torch.gather(ye.reshape(ng, E * C, d), 1,
+                            idx[..., None].expand(ng, G * k, d))
+        rows = rows * keep_tk[..., None].to(rows.dtype)
+        wf = r.gate_w.reshape(ng, G * k)[..., None].to(rows.dtype)
+        y = (rows * wf).reshape(ng, G, k, d).sum(2)
+        return MoEOut(y.reshape(B, S, d), r.aux_loss)
+
+    pos_oh = one_hot(r.pos, C, x.dtype) * r.keep[..., None].to(x.dtype)
+    disp = pos_oh.reshape(ng, G, k, E, C)                  # one-hot [..E,C]
+    wf = r.gate_w.to(x.dtype)[..., None, None]             # [ng,G,k,1,1]
+    combine = (disp * wf).sum(2)                           # [ng,G,E,C]
+    disp_t = disp.sum(2)                                   # [ng,G,E,C]
+    xe = torch.einsum("gtec,gtd->gecd", disp_t, xt)        # dispatch
+    ye = _expert_compute(xe, p, cfg)
+    y = torch.einsum("gecd,gtec->gtd", ye, combine)        # combine
+    return MoEOut(y.reshape(B, S, d), r.aux_loss)
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +500,22 @@ class MLP(_Weights):
 
     def forward(self, x):
         return mlp(x, self.weights(), self.cfg)
+
+
+class MoE(_Weights):
+    """The reference's ``layers.moe`` leaves of one layer: ``router [d,
+    E]``, ``w1 [E, d, f]``, ``w3 [E, d, f]`` (swiglu, geglu), ``w2 [E, f,
+    d]``; :func:`moe_ffn` over them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        d, E, f = cfg.d_model, cfg.n_experts, cfg.eff_moe_d_ff
+        shapes = {"router": (d, E), "w1": (E, d, f), "w2": (E, f, d)}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            shapes["w3"] = (E, d, f)
+        super().__init__(cfg, shapes, device)
+
+    def forward(self, x) -> MoEOut:
+        return moe_ffn(x, self.weights(), self.cfg)
 
 
 class MambaMixer(_Weights):

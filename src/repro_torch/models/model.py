@@ -1,13 +1,17 @@
 """Model assembly of the port: init, prefill, decode.
 
-The port of ``repro.models.model`` for the ``ssm`` (falcon-mamba-7b),
-``hybrid`` (hymba-1.5b) and ``dense`` (qwen3-4b, gemma2-2b,
-phi3-medium-14b, starcoder2-15b) families, tied or untied head.  The
-reference stacks per-layer leaves ``[L, ...]`` for ``lax.scan``; here the
-model is an ``nn.Module`` (:class:`LM`) with one :class:`Layer` per layer in
-an ``nn.ModuleList``, and the layer loop is a Python loop.  The functions
-keep the reference's signatures with the model in place of the param
-pytree.
+The port of ``repro.models.model`` for serving every family: ``ssm``
+(falcon-mamba-7b), ``hybrid`` (hymba-1.5b), ``dense`` (qwen3-4b,
+gemma2-2b, phi3-medium-14b, starcoder2-15b), ``moe`` (mixtral-8x22b,
+arctic-480b with its dense residual), ``vlm`` (phi-3-vision-4.2b: a
+projected patch prefix before the text) and ``encdec``
+(seamless-m4t-medium: an encoder stack, cross-attention and its
+``ek``/``ev`` caches), tied or untied head.  The reference stacks
+per-layer leaves ``[L, ...]`` for ``lax.scan``; here the model is an
+``nn.Module`` (:class:`LM`) with one :class:`Layer` per layer in an
+``nn.ModuleList`` (and the encoder's in another), and the layer loop is a
+Python loop.  The functions keep the reference's signatures with the
+model in place of the param pytree.
 
 One deliberate parting: :func:`prefill` writes position ``p`` of a layer's
 K/V at cache slot ``p % C``, the slot :func:`~repro_torch.models.layers.
@@ -16,9 +20,8 @@ attention_decode` reads and overwrites.  The reference writes the last
 ``C`` divides ``S``; at other lengths its first decode steps overwrite
 positions still inside a window (ROADMAP queue 3).
 
-The ``moe``, ``vlm`` and ``encdec`` families raise ``NotImplementedError``
-(ROADMAP queue 1, item 1), and so does training (``forward_hidden``,
-``loss_fn``, ``chunked_ce_loss`` are not ported yet).
+Training (``forward_hidden``, ``loss_fn``, ``chunked_ce_loss``) is not
+ported yet (ROADMAP queue 1, training).
 """
 from __future__ import annotations
 
@@ -29,26 +32,18 @@ from torch import nn
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
-PORTED_FAMILIES = ("ssm", "hybrid", "dense")
+PORTED_FAMILIES = ("ssm", "hybrid", "dense", "moe", "vlm", "encdec")
 
 # weights that every use casts to the compute dtype (``.to(x.dtype)`` in
 # layers.py and here); A_log, D and the norms (q_norm, k_norm too) are used
 # in float32
 _COMPUTE_CAST = ("embed", "lm_head", "in_proj", "conv_w", "conv_b", "x_proj",
                  "dt_proj", "dt_bias", "out_proj", "wq", "wk", "wv", "wo",
-                 "w1", "w2", "w3")
+                 "w1", "w2", "w3", "router", "frontend_proj")
 
 
 def vocab_padded(cfg: ModelConfig) -> int:
     return int(np.ceil(cfg.vocab / 512)) * 512
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP queue 1, item 1: MoE, VLM, enc-dec); the port "
-            f"serves {', '.join(repr(f) for f in PORTED_FAMILIES)} models")
 
 
 def _cdtype(cfg: ModelConfig):
@@ -66,10 +61,13 @@ def _vector(d: int, device):
 class Layer(nn.Module):
     """One residual block.  ``ssm``: ``x + mamba(rmsnorm(x, ln1))``.  Else
     ``x + attn`` (hybrid: ``0.5 * (attn + mamba)`` on the same normed
-    input), then ``x + mlp(rmsnorm(x, ln2))``; with sandwich norms each
-    branch's output is normed again (``ln1_post``, ``ln2_post``)."""
+    input), then in a decoder of an encoder-decoder ``x +
+    xattn(rmsnorm(x, ln_x))``, then ``x + ffn(rmsnorm(x, ln2))``: the MLP,
+    or the MoE (with ``dense_residual`` plus the MLP); with sandwich norms
+    each branch's output is normed again (``ln1_post``, ``ln2_post``).
+    ``decoder=False`` is an encoder layer of the same config."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, decoder: bool = True):
         super().__init__()
         d = cfg.d_model
         self.ln1 = _vector(d, device)
@@ -79,20 +77,29 @@ class Layer(nn.Module):
                 self.ln1_post = _vector(d, device)
                 self.ln2_post = _vector(d, device)
             self.attn = L.Attention(cfg, device=device)
-            self.mlp = L.MLP(cfg, device=device)
+            if cfg.family == "moe":
+                self.moe = L.MoE(cfg, device=device)
+            if cfg.family != "moe" or cfg.dense_residual:
+                self.mlp = L.MLP(cfg, device=device)
         if cfg.family in ("ssm", "hybrid"):
             self.ssm = L.MambaMixer(cfg, device=device)
+        if decoder and cfg.enc_layers:
+            self.xattn = L.Attention(cfg, device=device)
+            self.ln_x = _vector(d, device)
 
 
 class LM(nn.Module):
-    """A decoder-only LM: the token embedding, the layers, the final norm
-    and, when the config does not tie it, ``lm_head [d, Vp]``; float32 as
-    the config's ``param_dtype``.  Built empty; :func:`init_params` or
+    """An LM: the token embedding, the layers, the final norm and, when the
+    config does not tie it, ``lm_head [d, Vp]``; with encoder layers the
+    ``encoder`` stack and ``enc_norm``; with a frontend ``frontend_proj
+    [frontend_dim, d]``.  float32 as the config's ``param_dtype``.  Built
+    empty; :func:`init_params` or
     :func:`repro_torch.models.weights.params_from_reference` fill it."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _require_ported(cfg)
+        if cfg.family not in PORTED_FAMILIES:
+            raise ValueError(f"{cfg.name}: no such family {cfg.family!r}")
         self.cfg = cfg
         Vp = vocab_padded(cfg)
         self.embed = nn.Parameter(torch.empty(Vp, cfg.d_model, device=device),
@@ -104,6 +111,15 @@ class LM(nn.Module):
                 requires_grad=False)
         self.layers = nn.ModuleList(
             Layer(cfg, device=device) for _ in range(cfg.n_layers))
+        if cfg.enc_layers:
+            self.encoder = nn.ModuleList(
+                Layer(cfg, device=device, decoder=False)
+                for _ in range(cfg.enc_layers))
+            self.enc_norm = _vector(cfg.d_model, device)
+        if cfg.frontend:
+            self.frontend_proj = nn.Parameter(
+                torch.empty(cfg.frontend_dim, cfg.d_model, device=device),
+                requires_grad=False)
 
 
 MambaLM = LM   # the ssm-only model's earlier name
@@ -116,8 +132,9 @@ MambaLM = LM   # the ssm-only model's earlier name
 @torch.no_grad()
 def init_params(cfg: ModelConfig, *, generator=None, device="cuda") -> LM:
     """Random weights with the reference's shapes, scales and constants:
-    normal(0, 0.02) matrices (conv 0.1; ``wo``, ``w2`` and ``out_proj``
-    0.02/sqrt(2L)), ``A_log = log(1..state)``, ``dt_bias = -4.6``
+    normal(0, 0.02) matrices, the router and the frontend projection too
+    (conv 0.1; ``wo``, ``w2`` and ``out_proj`` 0.02/sqrt(2L), the experts'
+    ``w2`` and the encoder's too), ``A_log = log(1..state)``, ``dt_bias = -4.6``
     (softplus^-1(0.01)), ``D = 1``, ``conv_b = 0``, norms 1.  The draws come
     from ``generator`` (a ``torch.Generator`` on ``device``); on
     ``device="meta"`` only the shapes exist and no generator is needed."""
@@ -133,13 +150,19 @@ def init_params(cfg: ModelConfig, *, generator=None, device="cuda") -> LM:
     model.final_norm.fill_(1.0)
     if not cfg.tie_embeddings:
         normal(model.lm_head)
+    if cfg.enc_layers:
+        model.enc_norm.fill_(1.0)
+    if cfg.frontend:
+        normal(model.frontend_proj)
     if cfg.family in ("ssm", "hybrid"):
         a_log = torch.log(torch.arange(1, cfg.ssm_state + 1,
                                        dtype=torch.float32, device=device))
-    for layer in model.layers:
+    layers = list(model.layers) + list(getattr(model, "encoder", ()))
+    for layer in layers:
         for name, w in layer.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if name.startswith(("ln", "attn.q_norm", "attn.k_norm")):
+            if name.startswith(("ln", "attn.q_norm", "attn.k_norm",
+                                "xattn.q_norm", "xattn.k_norm")):
                 w.fill_(1.0)
             elif leaf in ("wo", "w2", "out_proj"):
                 normal(w, out_scale)
@@ -190,12 +213,12 @@ def embed_tokens(model: LM, cfg: ModelConfig, tokens):
 
 
 def init_cache(cfg: ModelConfig, B: int, cache_len: int, *,
-               device="cuda") -> list:
+               src_len: int = 0, device="cuda") -> list:
     """Per-layer cache list: the SSM state ``h`` and conv window (``ssm``,
     ``hybrid``), and ``k``, ``v`` [B, C, KV, hd] with their absolute
     positions ``pos`` [B, C] (-1 = empty) for attention, where a windowed
-    layer holds ``C = min(cache_len, window)``."""
-    _require_ported(cfg)
+    layer holds ``C = min(cache_len, window)``; with encoder layers the
+    cross-attention's ``ek``, ``ev`` [B, src_len, KV, hd]."""
     dt = _cdtype(cfg)
     KV, hd = cfg.n_kv_heads, cfg.hd
     caches = []
@@ -214,6 +237,11 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, *,
             c["v"] = torch.zeros((B, C, KV, hd), dtype=dt, device=device)
             c["pos"] = torch.full((B, C), -1, dtype=torch.int32,
                                   device=device)
+        if cfg.enc_layers:
+            c["ek"] = torch.zeros((B, src_len, KV, hd), dtype=dt,
+                                  device=device)
+            c["ev"] = torch.zeros((B, src_len, KV, hd), dtype=dt,
+                                  device=device)
         caches.append(c)
     return caches
 
@@ -230,12 +258,27 @@ def _logits(model: LM, cfg: ModelConfig, x):
     return L.softcap(logits, cfg.logit_softcap)
 
 
-def _mlp_branch(layer: Layer, cfg: ModelConfig, x, o):
-    """The attention branch's output ``o`` added, then the MLP's."""
+def _ffn(layer: Layer, cfg: ModelConfig, h):
+    """The feed-forward branch on the normed ``h``: the MLP, or the MoE
+    (plus the MLP with ``dense_residual``).  The MoE's aux loss has no
+    consumer in serving."""
+    if cfg.family != "moe":
+        return layer.mlp(h)
+    o = layer.moe(h).y
+    return o + layer.mlp(h) if cfg.dense_residual else o
+
+
+def _rest_of_layer(layer: Layer, cfg: ModelConfig, x, o, enc_kv=None):
+    """The attention branch's output ``o`` added, then the cross-attention
+    on ``enc_kv = (ek, ev)`` (a decoder of an encoder-decoder), then the
+    feed-forward branch's."""
     if cfg.sandwich_norm:
         o = _norm(o, layer.ln1_post, cfg, post=True)
     x = x + o
-    o = layer.mlp(_norm(x, layer.ln2, cfg))
+    if enc_kv is not None:
+        hx = L.rmsnorm(x, layer.ln_x, cfg.norm_eps)
+        x = x + L.cross_attention(hx, layer.xattn.weights(), cfg, *enc_kv)
+    o = _ffn(layer, cfg, _norm(x, layer.ln2, cfg))
     if cfg.sandwich_norm:
         o = _norm(o, layer.ln2_post, cfg, post=True)
     return x + o
@@ -243,10 +286,11 @@ def _mlp_branch(layer: Layer, cfg: ModelConfig, x, o):
 
 @torch.no_grad()
 def decode_step(model: LM, cfg: ModelConfig, caches, token, pos: int):
-    """One-token decode.  token [B,1] int; ``pos`` the token's position (an
-    SSM layer does not read it).  K/V caches are written in place.
-    Returns (logits [B, vocab_padded], new_caches)."""
-    _require_ported(cfg)
+    """One-token decode.  token [B,1] int; ``pos`` the token's position
+    (after a VLM's patch prefix, counting it; an SSM layer does not read
+    it).  K/V caches are written in place.  Returns (logits [B,
+    vocab_padded], new_caches).  An MoE layer routes the batch's B tokens
+    as one group."""
     x = embed_tokens(model, cfg, token)
     new_caches = []
     for layer, kind, c in zip(model.layers, _kinds(cfg), caches):
@@ -263,7 +307,8 @@ def decode_step(model: LM, cfg: ModelConfig, caches, token, pos: int):
                 pos)
             if cfg.family == "hybrid":
                 o = 0.5 * (o + s)
-            x = _mlp_branch(layer, cfg, x, o)
+            x = _rest_of_layer(layer, cfg, x, o,
+                               (c["ek"], c["ev"]) if cfg.enc_layers else None)
         new_caches.append(c)
     return _logits(model, cfg, x[:, 0, :]), new_caches
 
@@ -288,18 +333,46 @@ def _ssm_prefill(mixer: L.MambaMixer, cfg: ModelConfig, h):
     return y @ p["out_proj"].to(h.dtype), hfin, x1[:, S - (k - 1):].clone()
 
 
+def encode(model: LM, cfg: ModelConfig, src):
+    """The encoder stack over the source frames ``src [B, Ss,
+    frontend_dim]`` (projected by ``frontend_proj`` where the model has
+    one), then ``enc_norm``: ``[B, Ss, d]`` in the compute dtype."""
+    x = src.to(_cdtype(cfg))
+    if cfg.frontend:
+        x = x @ model.frontend_proj.to(x.dtype)
+    for layer in model.encoder:
+        h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
+        x = x + L.encoder_attention(h, layer.attn.weights(), cfg)
+        h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
+        x = x + layer.mlp(h)
+    return L.rmsnorm(x, model.enc_norm, cfg.norm_eps)
+
+
 @torch.no_grad()
-def prefill(model: LM, cfg: ModelConfig, tokens, cache_len: int):
+def prefill(model: LM, cfg: ModelConfig, tokens, cache_len: int,
+            frontend=None, src=None):
     """Run the full-sequence layers over ``tokens [B, S]`` and fill the
     caches: each SSM layer's final state and last ``k - 1`` pre-conv inputs;
-    each attention layer's K/V of the last ``min(C, S)`` positions, position
-    ``p`` at slot ``p % C``.  Returns (last-position logits [B,
-    vocab_padded], caches)."""
-    _require_ported(cfg)
+    each attention layer's K/V of the last ``min(C, S_all)`` positions,
+    position ``p`` at slot ``p % C``.  A VLM's ``frontend [B, P,
+    frontend_dim]`` is projected and put before the text, so the sequence
+    is ``S_all = P + S`` long and decoding goes on at position ``S_all``;
+    an encoder-decoder's ``src`` goes through :func:`encode`, and each
+    decoder layer's ``ek``/``ev`` are computed once from its output.
+    Returns (last-position logits [B, vocab_padded], caches)."""
     B, S = tokens.shape
-    caches = init_cache(cfg, B, cache_len, device=tokens.device)
+    caches = init_cache(cfg, B, cache_len,
+                        src_len=src.shape[1] if src is not None else 0,
+                        device=tokens.device)
     x = embed_tokens(model, cfg, tokens)
-    pos = torch.arange(S, device=tokens.device)
+    if cfg.frontend and frontend is not None:
+        fx = frontend.to(x.dtype) @ model.frontend_proj.to(x.dtype)
+        x = torch.cat([fx, x], dim=1)
+    enc_out = None
+    if cfg.enc_layers and src is not None:
+        enc_out = encode(model, cfg, src)
+    S_all = x.shape[1]
+    pos = torch.arange(S_all, device=tokens.device)
     for layer, kind, c in zip(model.layers, _kinds(cfg), caches):
         h = _norm(x, layer.ln1, cfg)
         if cfg.family in ("ssm", "hybrid"):
@@ -314,11 +387,21 @@ def prefill(model: LM, cfg: ModelConfig, tokens, cache_len: int):
         o = L.blockwise_attention(q, kk, vv, pos, pos, cfg, kind)
         o = o @ p["wo"].to(x.dtype)
         C = c["k"].shape[1]
-        keep = pos[S - min(C, S):]
+        keep = pos[S_all - min(C, S_all):]
         c["k"][:, keep % C] = kk[:, keep]
         c["v"][:, keep % C] = vv[:, keep]
         c["pos"][:, keep % C] = keep.to(torch.int32)
         if cfg.family == "hybrid":
             o = 0.5 * (o + s)
-        x = _mlp_branch(layer, cfg, x, o)
+        enc_kv = None
+        if enc_out is not None:
+            xp = layer.xattn.weights()
+            d, KV, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
+            shape = enc_out.shape[:2] + (KV, hd)
+            c["ek"] = (enc_out @ xp["wk"].to(x.dtype).reshape(d, KV * hd)
+                       ).view(shape)
+            c["ev"] = (enc_out @ xp["wv"].to(x.dtype).reshape(d, KV * hd)
+                       ).view(shape)
+            enc_kv = (c["ek"], c["ev"])
+        x = _rest_of_layer(layer, cfg, x, o, enc_kv)
     return _logits(model, cfg, x[:, -1, :]), caches

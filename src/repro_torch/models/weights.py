@@ -17,20 +17,27 @@ from repro_torch.models.model import LM
 
 
 def params_from_reference(tree, cfg: ModelConfig, *, device="cuda") -> LM:
-    """``tree``: ``{"embed", "final_norm", "lm_head" (untied), "layers":
-    {"ln1", "ln2", "ln1_post", "ln2_post", "attn": {...}, "mlp": {...},
-    "ssm": {...}}}`` of numpy arrays, per-layer leaves ``[L, ...]``, the
-    family's subset.  Raises on a missing, extra or misshapen leaf."""
-    state = {k: v for k, v in tree.items() if k != "layers"}
-    for key, group in tree["layers"].items():
-        leaves = group.items() if isinstance(group, dict) else [(None, group)]
-        for name, leaf in leaves:
-            path = key if name is None else f"{key}.{name}"
-            if len(leaf) != cfg.n_layers:
-                raise ValueError(f"layers.{path} stacks {len(leaf)} layers, "
-                                 f"the config {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                state[f"layers.{i}.{path}"] = leaf[i]
+    """``tree``: ``{"embed", "final_norm", "lm_head" (untied),
+    "frontend_proj", "enc_norm", "layers": {...}, "encoder": {...}}`` of
+    numpy arrays, the family's subset.  A layer stack (``layers``,
+    ``encoder``) holds ``ln1``, ``ln2``, ``ln1_post``, ``ln2_post``,
+    ``ln_x`` and the groups ``attn``, ``xattn``, ``mlp``, ``moe``
+    (``router``, ``w1``, ``w2``, ``w3`` of every expert, ``[L, E, ...]``)
+    and ``ssm``, each leaf stacked ``[L, ...]``.  Raises on a missing,
+    extra or misshapen leaf."""
+    stacks = {"layers": cfg.n_layers, "encoder": cfg.enc_layers}
+    state = {k: v for k, v in tree.items() if k not in stacks}
+    for stack, n_layers in stacks.items():
+        for key, group in tree.get(stack, {}).items():
+            leaves = (group.items() if isinstance(group, dict)
+                      else [(None, group)])
+            for name, leaf in leaves:
+                path = key if name is None else f"{key}.{name}"
+                if len(leaf) != n_layers:
+                    raise ValueError(f"{stack}.{path} stacks {len(leaf)} "
+                                     f"layers, the config {n_layers}")
+                for i in range(n_layers):
+                    state[f"{stack}.{i}.{path}"] = leaf[i]
     model = LM(cfg, device="meta")
     model.load_state_dict(
         {k: torch.as_tensor(np.array(v), device=device)

@@ -4,9 +4,11 @@ The port of ``repro.serve.engine``.  Requests fill the engine's batch
 (left-padded to the longest prompt), prefill runs the full-sequence layers
 and fills each layer's cache, and ``decode_step`` advances every slot one
 token per tick, greedily or by seeded sampling (``np.random.default_rng``).
-It serves every family the port has (``ssm``, ``hybrid``, ``dense``).  On
-the card each Mamba layer's prefill scan is kernel K6; attention and the
-MLPs are plain PyTorch.
+It serves every family; as the reference's, it passes no VLM patch
+prefix and no encoder source, so those models take them through
+:func:`~repro_torch.models.model.prefill` and ``decode_step`` directly.
+On the card each Mamba layer's prefill scan is kernel K6; attention, the
+MLPs and the MoE are plain PyTorch.
 
 The engine casts each weight once to the dtype its use casts it to
 (:func:`~repro_torch.models.model.cast_for_compute`), which gives the same

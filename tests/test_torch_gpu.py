@@ -1,6 +1,6 @@
 """The CUDA kernels K1-K6 against their plain PyTorch versions, and the
-port's service, sharded planes and LM serving paths (ssm, hybrid, dense),
-on the card.
+port's service, sharded planes, the production dry run and LM serving
+paths (every family), on the card.
 
 Every ``gpu``-marked test needs a CUDA device and skips without one
 (decided in a fixture).  The file imports no JAX, so it runs on a machine
@@ -704,6 +704,99 @@ def test_gpu_attention_families_match_cpu(cuda, arch, dtype):
                 assert torch.equal(ca[name], cb[name])
             else:
                 torch.testing.assert_close(ca[name], cb[name], **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype,impl", [
+    ("mixtral-8x22b", "float32", "onehot"),
+    ("mixtral-8x22b", "float32", "gather"),
+    ("arctic-480b", "float32", "onehot"),
+    ("phi-3-vision-4.2b", "float32", "onehot"),
+    ("phi-3-vision-4.2b", "bfloat16", "onehot"),
+    ("seamless-m4t-medium", "float32", "onehot"),
+    ("seamless-m4t-medium", "bfloat16", "onehot")])
+def test_gpu_other_families_match_cpu(cuda, arch, dtype, impl):
+    """Reduced mixtral (both dispatch forms) and arctic (dense residual),
+    phi-3-vision with its 4-patch prefix and seamless with 8 source
+    frames, the same weights on the card and on the CPU: prefill logits
+    and every cache leaf, then two decode steps, within the float32 bar
+    (1e-5) or the bf16 bar (2e-2); no kernel launched.  The MoE models in
+    float32 only: bf16 logits tie more often than the devices' products
+    keep the same order."""
+    import dataclasses
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype=dtype,
+                              moe_impl=impl)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    host = tmodel.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (3, 18)),
+                           dtype=torch.int32)
+    front = src = None
+    if cfg.frontend and not cfg.enc_layers:
+        front = torch.as_tensor(rng.standard_normal(
+            (3, cfg.frontend_len, cfg.frontend_dim)), dtype=torch.float32)
+    if cfg.enc_layers:
+        src = torch.as_tensor(rng.standard_normal((3, 8, cfg.frontend_dim)),
+                              dtype=torch.float32)
+    start = 16 + (cfg.frontend_len if front is not None else 0)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = tmodel.cast_for_compute(host, cfg, device=dev)
+        kops.reset_launches()
+        logits, caches = tmodel.prefill(
+            model, cfg, toks[:, :16].to(dev), 32,
+            frontend=None if front is None else front.to(dev),
+            src=None if src is None else src.to(dev))
+        steps = [logits]
+        for t in range(2):
+            logits, caches = tmodel.decode_step(
+                model, cfg, caches, toks[:, 16 + t:17 + t].to(dev), start + t)
+            steps.append(logits)
+        out[str(dev)] = (kops.launch_counts(), [s.cpu() for s in steps],
+                         [{k: v.cpu() for k, v in c.items()} for c in caches])
+    assert not any(out["cpu"][0].values())
+    assert not any(out["cuda"][0].values())
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, **tol)
+    for ca, cb in zip(out["cuda"][2], out["cpu"][2]):
+        assert set(ca) == set(cb)
+        for name in ca:
+            if name == "pos":
+                assert torch.equal(ca[name], cb[name])
+            else:
+                torch.testing.assert_close(ca[name], cb[name], **tol)
+
+
+@pytest.mark.gpu
+def test_gpu_dryrun_matches_cpu(cuda):
+    """The production dry run at the small config (mesh2d(45, 45) padded
+    to 2^12 rows): two rounds on the production mesh and the run to the
+    end on 8 shards, on the card (K4 marks every shard) and on the CPU,
+    bitwise; the card's row has its device fields."""
+    from repro_torch.launch import dryrun_pdgrass as dry
+    from repro_torch.launch import make_mesh_for, make_production_mesh
+
+    cfg, side = dry.SMALL
+    g = mesh2d(*side, seed=0)
+    out = {}
+    for dev in ("cpu", cuda):
+        rows = dry.production_rows(cfg, g, device=dev)
+        kops.reset_launches()
+        row, two = dry.dry_run(rows, make_production_mesh(device=dev), cfg,
+                               rounds=2)
+        _, end = dry.dry_run(rows, make_mesh_for(8, device=dev), cfg,
+                             rounds=None)
+        out[str(dev)] = (row, two.cpu(), end.cpu(),
+                         kops.launch_counts()["similarity_mark"])
+    assert out["cpu"][3] == 0 and out["cuda"][3] > 0
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+    row = out["cuda"][0]
+    assert row["round_ms"] is not None and row["temp_gb"] is not None
+    assert row["coll_bytes_per_dev"] == out["cpu"][0]["coll_bytes_per_dev"]
 
 
 @pytest.mark.gpu

@@ -2,7 +2,9 @@
 hymba-1.5b (hybrid: parallel attention and Mamba heads, global and
 sliding-window layers), qwen3-4b (qk-norm), gemma2-2b (softcaps, sandwich
 norms, geglu, local/global layers, embedding scale), phi3-medium-14b and
-starcoder2-15b (untied heads; starcoder2's gelu MLP).
+starcoder2-15b (untied heads; starcoder2's gelu MLP); and the full-width
+shapes and the card's cuts of the MoE, VLM and encoder-decoder families,
+whose parity is in ``tests/test_torch_moe_vlm_encdec.py``.
 
 Weights are the reference's ``init_params`` from a seed, carried across by
 ``params_from_reference``; token ids come from numpy with a seed.
@@ -34,6 +36,9 @@ F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 ARCHS = ["hymba-1.5b", "qwen3-4b", "gemma2-2b", "phi3-medium-14b",
          "starcoder2-15b"]
+FAMILIES = ["mixtral-8x22b", "arctic-480b", "phi-3-vision-4.2b",
+            "seamless-m4t-medium"]
+MOE = ["mixtral-8x22b", "arctic-480b"]
 # full-width parameter counts (the reference's init, by jax.eval_shape)
 FULL_PARAMS = {"hymba-1.5b": 1_611_368_000, "qwen3-4b": 4_022_795_776,
                "gemma2-2b": 2_614_341_888,
@@ -88,7 +93,7 @@ def _close_caches(ct, cj, tol):
 
 # -- shapes --------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES)
 def test_full_width_shapes_on_meta_match_reference(arch):
     """Full width on the meta device against ``jax.eval_shape`` of the
     reference's init: every leaf's name, shape and dtype."""
@@ -103,12 +108,13 @@ def test_full_width_shapes_on_meta_match_reference(arch):
     for path, leaf in jax.tree_util.tree_leaves_with_path(ref):
         names = [k.key for k in path]
         assert leaf.dtype == jnp.float32
-        if names[0] != "layers":
+        if names[0] not in ("layers", "encoder"):
             want[".".join(names)] = leaf.shape
             continue
-        assert leaf.shape[0] == cfg.n_layers
-        for i in range(cfg.n_layers):
-            want[".".join(["layers", str(i)] + names[1:])] = leaf.shape[1:]
+        n = cfg.n_layers if names[0] == "layers" else cfg.enc_layers
+        assert leaf.shape[0] == n
+        for i in range(n):
+            want[".".join([names[0], str(i)] + names[1:])] = leaf.shape[1:]
     sd = model.state_dict()
     assert {k: tuple(v.shape) for k, v in sd.items()} == want
     assert all(t.device.type == "meta" and t.dtype == torch.float32
@@ -121,6 +127,22 @@ def test_starcoder2_cut_to_8_layers_has_the_card_run_count():
                               n_layers=8)
     assert tmodel.param_count(tmodel.init_params(cfg, device="meta")) \
         == 3_674_314_752
+
+
+@pytest.mark.parametrize("arch,cut,count", [
+    ("mixtral-8x22b", dict(n_layers=4), 10_418_903_040),
+    ("arctic-480b", dict(n_layers=2, n_experts=32), 7_601_097_728),
+    ("phi-3-vision-4.2b", {}, 3_825_404_928),
+    ("seamless-m4t-medium", {}, 878_770_176)])
+def test_card_run_cuts_have_their_counts(arch, cut, count):
+    """The parameter counts ``chip_smoke.py`` gates, at the cuts it
+    serves, equal to the reference's at the same config."""
+    cfg = dataclasses.replace(tconfigs.get_config(arch), **cut)
+    assert tmodel.param_count(tmodel.init_params(cfg, device="meta")) \
+        == count
+    jcfg = dataclasses.replace(jconfigs.get_config(arch), **cut)
+    assert jmodel.param_count(jax.eval_shape(
+        lambda: jmodel.init_params(jcfg, jax.random.key(0)))) == count
 
 
 def test_params_from_reference_raises_on_a_bad_tree():

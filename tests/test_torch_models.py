@@ -97,20 +97,6 @@ def test_configs_equal_reference(arch):
         tconfigs.get_config(arch + "-nope")
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "arctic-480b",
-                                  "phi-3-vision-4.2b", "seamless-m4t-medium"])
-def test_other_families_raise_not_implemented(arch):
-    """The families not ported yet raise, naming the ROADMAP item that
-    ports them."""
-    cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    assert cfg.family not in tmodel.PORTED_FAMILIES
-    for call in (lambda: tmodel.init_params(cfg, device="meta"),
-                 lambda: tmodel.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue 1, item 1: MoE, VLM"):
-            call()
-
-
 # -- weights -------------------------------------------------------------------
 
 def test_full_falcon_mamba_shapes_on_meta_match_reference():
