@@ -5,7 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-  1. build the CUDA kernels K1-K6 from ``src/repro_torch/kernels/csrc``;
+  1. build the CUDA kernels K1-K6 and K6b from
+     ``src/repro_torch/kernels/csrc``;
   2. hold each kernel against its plain PyTorch version on the card at
      edge sizes (n = 31, 100, 257; k = 1, 3, 8, 16; x with more rows than
      the slab for K1): K1, K2 and K3 bitwise, K3 also on a hub aggregate
@@ -143,6 +144,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      against CPU in bf16 within 2e-2 * sqrt(d_model / 64); an MoE's
      tokens whose float32 routing parted counted, and its MoE outputs and
      every position's logits held before the first of them;
+  7d. LM training: (a) K6b (K6's gradient) against its plain version at
+     B in {1, 3}, S in {1, 16, 37}, di in {8, 37, 100}, state in {4, 8,
+     16}, float32 and bf16, nonzero h0 and dhT, strided B/C views, and at
+     di = 3200 twice (two launches bitwise equal), every output bitwise;
+     (c) hymba-1.5b's first 2 layers at full width, one batch of B = 1,
+     S = 512: loss, every gradient (relative norm) and the parameters
+     after one ``make_train_step``, card (K6, K6b) against CPU within
+     2e-2 * sqrt(d_model / 64); (d) hymba-1.5b whole (32 layers,
+     1,611,368,000 parameters, seed 0) trained by ``ResilientTrainer.run``
+     for 8 steps of B = 4 (the reference's 256, cut for the time limit),
+     S = 4096 (AdamW lr 1e-4, warmup 2, ``remat``): losses finite and the
+     last three's mean below the first three's, K6 64 and K6b 32 launches
+     a step; each loss, the median step ms of steps 2-8, tokens/s, peak
+     memory, then one more step under ``torch.profiler`` (busy share);
+     (b) K6b at layer 0's inputs of that run, bitwise, timed beside its
+     bound and its plain version; (e) the first 2 layers, 6 steps of B =
+     2, S = 2048, a checkpoint every 2 and a simulated failure at step 3:
+     the restarted run's losses and final parameters bitwise equal to an
+     uninterrupted run's, under ``torch.use_deterministic_algorithms``
+     (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts), each save's
+     seconds printed;
   6f. (run after 6e) the paper's production dry run
      (``repro_torch.launch.dryrun_pdgrass``): mesh2d(4096, 4096)'s
      33,538,050 off-tree rows as one subtask padded to 2^25 rows, 16
@@ -189,7 +211,9 @@ daemon replay, each spectral call of phase 6d on its own, K4 over each
 of phase 6e's two ``recover_mixed`` runs and K1 over its sharded solve,
 K4 over phase 6f's rounds (its record's ``"dryrun"``), K6 over phase 7's
 first ``generate`` and over each phase 7b model's; phase 7c's models run
-no kernel (every count read after each ``generate`` must be 0).
+no kernel (every count read after each ``generate`` must be 0); K6 and
+K6b over phase 7d's 8-step run (K6b's record; K6's record's
+``"training"``).
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -199,6 +223,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -207,6 +232,9 @@ import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# phase 7d's restart check runs under torch.use_deterministic_algorithms,
+# whose cuBLAS calls need this set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 SLEEP_CYCLES_PER_S = 2e9      # at most the H100's SM clock, so sleeps run long
 MAIN_ROWS = 1024
@@ -1947,10 +1975,12 @@ def lm_serve(np, torch, kops, mm, eng, cfg, prompts, label, first,
     checked finite, the ids in range, no kernel launched outside
     ``kernels``; the inputs of the first K6 launch kept in ``first`` (if it
     is empty).  Returns (ids, launch counts)."""
+    from repro_torch.kernels import ssm_scan as kssm
     from repro_torch.serve import Request
 
     steps = []
-    prefill, decode_step, scan = mm.prefill, mm.decode_step, kops.ssm_scan
+    # the scan's autograd function calls the module's ssm_scan
+    prefill, decode_step, scan = mm.prefill, mm.decode_step, kssm.ssm_scan
 
     def timed(fn, kind):
         def run(*a, **kw):
@@ -1972,7 +2002,7 @@ def lm_serve(np, torch, kops, mm, eng, cfg, prompts, label, first,
 
     mm.prefill, mm.decode_step = (timed(prefill, "prefill"),
                                   timed(decode_step, "decode"))
-    kops.ssm_scan = recording
+    kssm.ssm_scan = recording
     try:
         kops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -1982,7 +2012,7 @@ def lm_serve(np, torch, kops, mm, eng, cfg, prompts, label, first,
         wall_s = time.perf_counter() - t0
         launches = kops.launch_counts()
     finally:
-        mm.prefill, mm.decode_step, kops.ssm_scan = (prefill, decode_step,
+        mm.prefill, mm.decode_step, kssm.ssm_scan = (prefill, decode_step,
                                                      scan)
     pre = [ms for kind, ms, _ in steps if kind == "prefill"]
     dec = [ms for kind, ms, _ in steps if kind == "decode"]
@@ -2381,7 +2411,8 @@ def family_prefill_both(torch, kops, mm, L, two, cfg2, toks, frontend,
                 frontend=None if frontend is None else frontend.to(dev),
                 src=None if src is None else src.to(dev))
             secs = time.perf_counter() - t0
-            every = mm._logits(view, cfg2, rec["x"][-1][0])
+            x_last, _ = rec["x"][-1]    # (x, the MoE's aux loss)
+            every = mm._logits(view, cfg2, x_last[0])
         finally:
             L.moe_route, L.moe_ffn, mm._rest_of_layer = route, ffn, rest
         out[dev] = (logits.cpu(), rec, kops.launch_counts(), secs,
@@ -2531,6 +2562,410 @@ def family_lm_path(np, torch, kops):
         torch.cuda.empty_cache()
         print(f"phase 7c {name}: {time.perf_counter() - t_model:.3f} s",
               flush=True)
+
+
+# phase 7d: hymba-1.5b trained whole, B = 4 (cut from the reference's 256
+# for the time limit), S = 4096 (its train_4k sequence), 8 steps.  lr
+# 1e-4: at 1e-3 the losses of 8 steps do not fall (10.6964 to 10.6820,
+# the last three's mean 6e-4 below the first three's), at 3e-4 the last
+# three's mean lies above the first three's, at 1e-4 0.28 below
+# (tools/train_probe.py --steps 8 --lr ..., H100 80GB HBM3; PERF.md §6):
+# Adam moves every weight by about lr a step, and the output projections
+# start at 0.02 / sqrt(2 x 32) = 0.0025
+TRAIN_ARCH, TRAIN_PARAMS = "hymba-1.5b", 1_611_368_000
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 4096, 8, 1e-4
+# (c) card against CPU: 2 layers, one batch of B = 1, S = 512
+CVC_B, CVC_S = 1, 512
+# (e) crash and restart: 2 layers, B = 2, S = 2048, 6 steps, a checkpoint
+# every 2, the failure at step 3
+RESTART_B, RESTART_S, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = \
+    2, 2048, 6, 2, 3
+
+
+def k6b_inputs(torch, gen, B, S, di, state, dtype, rank=None):
+    """K6b's operands from ``gen``: x, dt, B, C of ``dtype`` (B and C
+    strided views of one x_proj-like output when ``rank`` is given), A,
+    nonzero h0, dy and dhT."""
+    x1 = torch.randn((B, S, di), generator=gen, device="cuda").to(dtype)
+    dt = (0.1 * torch.rand((B, S, di), generator=gen, device="cuda")
+          ).to(dtype)
+    if rank is None:
+        Bm, Cm = (torch.randn((B, S, state), generator=gen, device="cuda")
+                  .to(dtype) for _ in range(2))
+    else:
+        xdbc = torch.randn((B, S, rank + 2 * state), generator=gen,
+                           device="cuda").to(dtype)
+        Bm, Cm = xdbc[..., rank:rank + state], xdbc[..., rank + state:]
+    A = -torch.rand((di, state), generator=gen, device="cuda") - 0.1
+    h0 = torch.randn((B, di, state), generator=gen, device="cuda")
+    dy = torch.randn((B, S, di), generator=gen, device="cuda")
+    dhT = torch.randn((B, di, state), generator=gen, device="cuda")
+    return [x1, dt, Bm, Cm, A, h0, dy, dhT]
+
+
+def k6b_same(torch, got, want, label):
+    """Fail unless every output of K6b equals its plain version's bitwise
+    (the reduced dB, dC, dA too: the plain version sums in the kernel's
+    order)."""
+    names = ("dx", "ddt", "dB", "dC", "dA", "dh0")
+    for name, g, w in zip(names, got, want):
+        if not torch.equal(g, w):
+            fail(f"K6b {name} not bitwise equal to its plain version "
+                 f"{label} (max abs err {float((g - w).abs().max()):.3e})")
+
+
+def k6b_edge_checks(torch, kops, ref):
+    """Phase 7d (a): K6b against its plain version at B in {1, 3}, S in {1,
+    16, 37}, di in {8, 37, 100}, state in {4, 8, 16}, float32 and bf16
+    inputs, nonzero h0 and dhT; B and C as strided views (rank 8 and di 96,
+    rank 5 and di 100); and at hymba's width (di 3200, 100 warps a row,
+    strided B and C) twice: the two launches bitwise equal.  Every output
+    bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    n = 0
+    for B in (1, 3):
+        for S in (1, 16, 37):
+            for di in (8, 37, 100):
+                for state in (4, 8, 16):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        args = k6b_inputs(torch, gen, B, S, di, state, dtype)
+                        k6b_same(torch, kops.ssm_scan_bwd(*args),
+                                 ref.ssm_scan_bwd_ref(*args),
+                                 f"at B={B} S={S} di={di} state={state} "
+                                 f"{dtype}")
+                        n += 1
+    for rank, di in ((8, 96), (5, 100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = k6b_inputs(torch, gen, 3, 37, di, 16, dtype, rank=rank)
+            want = ref.ssm_scan_bwd_ref(*args[:2], args[2].contiguous(),
+                                        args[3].contiguous(), *args[4:])
+            k6b_same(torch, kops.ssm_scan_bwd(*args), want,
+                     f"on strided B/C views, rank {rank}, {dtype}")
+            n += 1
+    args = k6b_inputs(torch, gen, 2, 37, 3200, 16, torch.bfloat16, rank=100)
+    first, second = kops.ssm_scan_bwd(*args), kops.ssm_scan_bwd(*args)
+    k6b_same(torch, first, ref.ssm_scan_bwd_ref(*args), "at di = 3200")
+    k6b_same(torch, second, first, "on a second launch of the same inputs")
+    torch.cuda.synchronize()
+    return n + 1
+
+
+def rel_norm(torch, a, b):
+    """``|a - b| / |b|`` (Frobenius), float32 on the host."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def train_card_vs_cpu(np, torch, kops, mm, model, cfg, tc):
+    """Phase 7d (c): the first 2 layers of ``model`` at full width, one
+    batch of ``make_batch`` (B = 1, S = 512): the loss, every leaf's
+    gradient (by relative norm) and the parameters after one
+    ``make_train_step``, on the card (K6 and K6b) against the CPU (their
+    plain versions), within the bf16 bar 2e-2 * sqrt(d_model / 64)."""
+    from repro_torch.train import init_opt_state, make_batch, make_train_step
+    from repro_torch.train.trainer import loss_and_grads
+
+    two, cfg2 = first_layers(mm, model, cfg, 2)
+    bar = LM_BF16["atol"] * np.sqrt(cfg.d_model / 64)
+    batch = make_batch(cfg2, CVC_B, CVC_S, step=0, seed=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sub = mm.LM(cfg2, device="meta")
+        sub.load_state_dict({k: v.detach().to(dev, copy=True)
+                             for k, v in two.state_dict().items()},
+                            assign=True)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        kops.reset_launches()
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(sub, cfg2, tc, b)
+        grads = {k: g.cpu() for k, g in grads.items()}
+        make_train_step(cfg2, tc)(sub, init_opt_state(sub, tc.opt), {}, b)
+        after = {k: p.detach().cpu() for k, p in sub.named_parameters()}
+        out[dev] = (float(loss), grads, after, kops.launch_counts(),
+                    time.perf_counter() - t0)
+        del sub
+    (lg, gg, pg, ng, sg), (lc, gc, pc, nc, sc) = out["cuda"], out["cpu"]
+    loss_err = abs(lg - lc) / abs(lc)
+    g_err = {k: rel_norm(torch, gg[k], gc[k]) for k in gc}
+    p_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    worst = max(g_err, key=g_err.get)
+    print(f"LM train {cfg2.name} 2 layers, card vs CPU (B={CVC_B}, "
+          f"S={CVC_S}, bf16): loss {lg:.6f} / {lc:.6f} (rel err "
+          f"{loss_err:.3e}); gradients' rel norm err max {g_err[worst]:.3e} "
+          f"({worst}), median {float(np.median(list(g_err.values()))):.3e}; "
+          f"parameters after a step max abs err {p_err:.3e}; K6/K6b "
+          f"launches "
+          f"{ng['ssm_scan']}/{ng['ssm_scan_bwd']} card, "
+          f"{nc['ssm_scan']}/{nc['ssm_scan_bwd']} CPU; card {sg:.3f} s, CPU "
+          f"{sc:.3f} s; bar {bar:.4f}", flush=True)
+    if (ng["ssm_scan"], ng["ssm_scan_bwd"]) != (8, 4) or any(nc.values()) \
+            or any(v for k, v in ng.items()
+                   if k not in ("ssm_scan", "ssm_scan_bwd")):
+        fail(f"2-layer training: the card did not run K6 (forward and "
+             f"recompute) and K6b in each Mamba layer of the two passes "
+             f"alone ({ng}), or the CPU ran a kernel ({nc})")
+    if loss_err > bar or g_err[worst] > bar or p_err > bar:
+        fail(f"2-layer training: card and CPU part beyond {bar:.4f}: loss "
+             f"{loss_err:.3e}, gradient {g_err[worst]:.3e} ({worst}), "
+             f"parameters {p_err:.3e}")
+
+
+def train_restart(np, torch, kops, cfg):
+    """Phase 7d (e): ``cfg`` on its first 2 layers at full width, 6 steps
+    of B = 2, S = 2048, a checkpoint every 2 steps: a crash at step 3 and
+    a restart from the step-2 checkpoint give the uninterrupted run's
+    losses and parameters bit for bit, under
+    ``torch.use_deterministic_algorithms(True)``; each save's seconds."""
+    from repro_torch.train import (AdamWConfig, ResilientTrainer,
+                                   TrainConfig, batches)
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    tc = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                     total_steps=RESTART_STEPS), remat=True)
+
+    def data_fn(s):
+        return batches(cfg2, RESTART_B, RESTART_S, seed=1, start_step=s)
+
+    def trainer(d):
+        return ResilientTrainer(cfg2, tc, ckpt_dir=d, ckpt_every=RESTART_EVERY,
+                                device="cuda")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            kops.reset_launches()
+            tr1 = trainer(os.path.join(root, "a"))
+            m1, _, losses1 = tr1.run(data_fn, RESTART_STEPS, resume=False,
+                                     seed=0)
+            k6b = kops.launch_counts()["ssm_scan_bwd"]
+            final1 = {k: p.detach().clone() for k, p in
+                      m1.named_parameters()}
+            del m1
+            shutil.rmtree(os.path.join(root, "a"))
+            tr2 = trainer(os.path.join(root, "b"))
+            try:
+                tr2.run(data_fn, RESTART_STEPS, fail_at=RESTART_FAIL,
+                        resume=False, seed=0)
+                fail("the simulated failure was not raised")
+            except RuntimeError as exc:
+                print(f"LM train restart: {exc}", flush=True)
+            tr3 = trainer(os.path.join(root, "b"))
+            m3, _, losses3 = tr3.run(data_fn, RESTART_STEPS, resume=True,
+                                     seed=0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    resumed = RESTART_FAIL // RESTART_EVERY * RESTART_EVERY
+    same = all(torch.equal(final1[k], p) for k, p in m3.named_parameters())
+    saves = tr1.save_seconds + tr2.save_seconds + tr3.save_seconds
+    print(f"LM train restart, {cfg2.name} 2 layers (B={RESTART_B}, "
+          f"S={RESTART_S}, checkpoint every {RESTART_EVERY}, failure at "
+          f"step {RESTART_FAIL}, resumed at {resumed}): losses {losses1} "
+          f"uninterrupted, {losses3} after the restart; parameters bitwise "
+          f"equal: {same}; K6b launches {k6b} in the uninterrupted run; "
+          f"saves (s) {[round(x, 3) for x in saves]}", flush=True)
+    if losses3 != losses1[resumed:] or not same:
+        fail("the restarted run is not bitwise equal to the uninterrupted "
+             "one")
+    if k6b != RESTART_STEPS * cfg2.n_layers:
+        fail(f"K6b launched {k6b} times over {RESTART_STEPS} steps of "
+             f"{cfg2.n_layers} layers")
+    del m3, final1
+    torch.cuda.empty_cache()
+
+
+def train_step_profile(torch, tr, model, opt, batch, step_ms):
+    """One more training step under ``torch.profiler``: its wall, the
+    device's busy time, its share of the profiled wall and of ``step_ms``
+    (the unprofiled median step: the profiler's own cost lengthens the
+    profiled wall), the device ops and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr._train_step(model, opt, {}, batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    # the raw events: ``prof.events()`` would build Python events for some
+    # 300,000 host and device ops, about a minute
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation()]
+    if not evs:
+        fail("the profiler recorded no device time over a training step")
+    names = {}
+    for e in evs:
+        names[e.name()] = names.get(e.name(), 0.0) + e.duration_ns() / 1e3
+    busy = sum(names.values()) / 1e3
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+    print(f"LM train profiled step: wall {wall:.1f} ms (profiled), device "
+          f"busy {busy:.1f} ms: busy share {busy / wall:.3f} of the "
+          f"profiled wall, {busy / step_ms:.3f} of the unprofiled median "
+          f"step ({step_ms:.1f} ms); {len(evs)} device ops; top: "
+          + "; ".join(f"{n[:48]} {us / 1e3:.1f} ms" for n, us in top),
+          flush=True)
+
+
+def k6b_record(torch, kops, ref, args, launches, card_clock_mhz):
+    """Phase 7d (b): K6b at hymba layer 0's training inputs as ``SsmScan``
+    hands them over (bf16 x and dt, B and C strided views of the x_proj
+    output, float32 dy): bitwise against the plain version, device ms
+    beside the plain version's and the bound (its inputs and outputs);
+    the bound with its own state stack and the exponentials' issue-rate
+    term printed beside it."""
+    from repro_torch.launch import roofline as rf
+
+    x1, dt, Bm, Cm, A, h0, dy, dhT = args
+    B, S, di = x1.shape
+    state = A.shape[1]
+    # the plain version's time from this one call (some 4096 x 45 small
+    # ops: host-bound, and seconds a call)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref.ssm_scan_bwd_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = kops.ssm_scan_bwd(*args)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    k6b_same(torch, got, want, "at hymba layer 0's training shape")
+    del got, want
+    nbytes, ops = rf.ssm_scan_bwd_launch(B, S, di, state, x1.element_size(),
+                                         Bm.element_size())
+    bms, by = rf.bound_ms(nbytes, ops)
+    stack = rf.ssm_scan_bwd_stack_bytes(B, S, di, state)
+    design_ms, design_by = rf.bound_ms(nbytes + stack, ops)
+    expf_ms = 2 * rf.ssm_scan_expf_ms(B, S, di, state, card_clock_mhz)
+    rec = dict(
+        name="ssm_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        replaces="none: the gradient of src/repro/kernels/ssm_scan.py:53, "
+                 "which the reference takes by differentiating its lax.scan "
+                 "(src/repro/models/layers.py:424)",
+        launches=launches, max_abs_err=err,
+        ms=time_ms(torch, lambda: kops.ssm_scan_bwd(*args), reps=5),
+        plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None)
+    print(f"K6b shapes: B={B} S={S} di={di} state={state}, {x1.dtype} "
+          f"inputs, B strides {Bm.stride()}; {nbytes} bytes, {ops} "
+          f"operations: bound {bms:.4f} ms ({by}); with the state stack "
+          f"({stack} bytes) {design_ms:.4f} ms ({design_by}); expf issue "
+          f"{expf_ms:.4f} ms; K6b {rec['ms']:.4f} ms ({rec['ms'] / bms:.1f}x "
+          f"its bound, {rec['ms'] / design_ms:.1f}x with the stack), plain "
+          f"{rec['plain_ms']:.1f} ms, max abs err {err}", flush=True)
+    return rec
+
+
+def train_path(np, torch, kops, ref):
+    """Phase 7d, LM training: (a) K6b's edge checks; (c) hymba-1.5b's
+    first 2 layers card against CPU; (d) hymba-1.5b whole (32 layers,
+    1,611,368,000 parameters, random weights from seed 0) trained by
+    ``ResilientTrainer.run`` for 8 steps of B = 4, S = 4096 (AdamW lr 1e-4,
+    warmup 2, ``remat``), K6 64 and K6b 32 times a step, losses finite and
+    falling, then one step under the profiler; (b) K6b at layer 0's
+    inputs; (e) the 2-layer crash and restart, bitwise.  Returns K6b's
+    record and K6's and K6b's launches over (d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssm_scan as kssm
+    from repro_torch.models import model as mm
+    from repro_torch.train import (AdamWConfig, ResilientTrainer,
+                                   TrainConfig, batches, make_batch)
+
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part_done(name):
+        now = time.perf_counter()
+        parts[name] = round(now - t_part[0], 3)
+        t_part[0] = now
+
+    n = k6b_edge_checks(torch, kops, ref)
+    print(f"edge sizes: {n} K6b cases bitwise (every output), two launches "
+          f"bitwise equal", flush=True)
+    part_done("a_edge_checks")
+
+    cfg = get_config(TRAIN_ARCH)
+    tc = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                     total_steps=TRAIN_STEPS), remat=True)
+    # written before the run: K6 once a Mamba layer forward and once in its
+    # recompute, K6b once a Mamba layer backward (one call: the scan and
+    # its reduction)
+    want = {"ssm_scan": 2 * cfg.n_layers, "ssm_scan_bwd": cfg.n_layers}
+    print(f"LM train: {TRAIN_ARCH} whole, B={TRAIN_B} (the reference's "
+          f"batch, 256, cut for the time limit), S={TRAIN_S}, "
+          f"{TRAIN_STEPS} steps; K6 and K6b launches a step expected: "
+          f"{want}", flush=True)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tr = ResilientTrainer(cfg, tc, ckpt_dir=ckpt_dir,
+                              ckpt_every=TRAIN_STEPS + 1, device="cuda")
+        model, _, _ = tr.init_state(0)
+        if mm.param_count(model) != TRAIN_PARAMS:
+            fail(f"{TRAIN_ARCH} has {mm.param_count(model)} parameters, "
+                 f"want {TRAIN_PARAMS}")
+        train_card_vs_cpu(np, torch, kops, mm, model, cfg, tc)
+        del model
+        torch.cuda.empty_cache()
+        part_done("c_card_vs_cpu")
+
+        # K6b's inputs at layer 0 (the last call of a backward) of step 0
+        first, calls = [], [0]
+        bwd = kssm.ssm_scan_bwd
+
+        def recording(*a):
+            calls[0] += 1
+            if calls[0] == cfg.n_layers:
+                first.append([torch.empty_strided(
+                    t.size(), t.stride(), dtype=t.dtype,
+                    device=t.device).copy_(t) for t in a])
+            return bwd(*a)
+
+        kssm.ssm_scan_bwd = recording
+        kops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            model, opt, losses = tr.run(
+                lambda s: batches(cfg, TRAIN_B, TRAIN_S, seed=0,
+                                  start_step=s),
+                TRAIN_STEPS, resume=False, seed=0)
+        finally:
+            kssm.ssm_scan_bwd = bwd
+        run_s = time.perf_counter() - t0
+        launches = kops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    steps_ms = [t * 1e3 for t in tr.step_times]
+    med = float(np.median(steps_ms[1:]))
+    print(f"LM train losses: {losses}", flush=True)
+    print(f"LM train {TRAIN_ARCH}: {TRAIN_STEPS} steps in {run_s:.3f} s "
+          f"(init included); step ms {[round(x, 1) for x in steps_ms]}; "
+          f"median of steps 2-{TRAIN_STEPS} {med:.1f} ms; "
+          f"{TRAIN_B * TRAIN_S / (med / 1e3):.1f} tokens/s; peak memory "
+          f"{peak} bytes; launches {json.dumps(launches)}; stragglers "
+          f"{tr.stragglers}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"the training loss did not fall: {losses}")
+    others = {k: v for k, v in launches.items() if v and k not in want}
+    got = {k: launches[k] for k in want}
+    if got != {k: v * TRAIN_STEPS for k, v in want.items()} or others:
+        fail(f"training launches {launches}, want {want} a step over "
+             f"{TRAIN_STEPS} steps and no other kernel")
+    part_done("d_whole_model")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in make_batch(
+        cfg, TRAIN_B, TRAIN_S, step=TRAIN_STEPS, seed=0).items()}
+    train_step_profile(torch, tr, model, opt, batch, med)
+    del model, opt, batch, tr
+    torch.cuda.empty_cache()
+    part_done("d_profiled_step")
+    rec = k6b_record(torch, kops, ref, first[0], launches["ssm_scan_bwd"],
+                     max_sm_clock_mhz())
+    del first
+    torch.cuda.empty_cache()
+    part_done("b_k6b_record")
+    train_restart(np, torch, kops, cfg)
+    part_done("e_restart")
+    print(f"phase 7d parts (s): {json.dumps(parts)}", flush=True)
+    return rec, launches["ssm_scan"]
 
 
 def k6_record(torch, kops, ref, args, launches, card_clock_mhz):
@@ -2807,6 +3242,10 @@ def main() -> int:
     family_lm_path(np, torch, kops)
     phase_done("family_lm_path")
 
+    # ---- phase 7d: LM training (K6 forward, K6b backward) -----------------
+    k6b, k6_train_launches = train_path(np, torch, kops, ref)
+    phase_done("train_path")
+
     # ---- phase 8: kernels at their paths' shapes -------------------------
     records = kernel_records(torch, vf, ref, hier, idx, val, counts,
                              solver.msolve, k2_cycles)
@@ -2826,7 +3265,9 @@ def main() -> int:
     k6["hymba"] = {k: hymba[k] for k in (
         "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}
+    k6["training"] = {"launches": k6_train_launches}
     records.append(k6)
+    records.append(k6b)
     phase_done("kernel_timing")
 
     # ---- phase 9: the analysis checkers on the card ----------------------

@@ -7,10 +7,11 @@ first use) and their plain PyTorch versions:
                     rounds.
   spmv_ell.py     — K5 single-column ELL spmv and the host ELL slab layout
                     of a graph Laplacian.
-  ssm_scan.py     — K6 fused Mamba1 selective scan (every Mamba layer's
-                    prefill).
+  ssm_scan.py     — K6 fused Mamba1 selective scan and K6b its gradient
+                    (``SsmScan``: every Mamba layer's scan, serving and
+                    training).
   ref.py          — the plain version of each kernel.
   _launch.py      — operand checks, the CUDA stream and the launch counts
-                    of all six.
+                    of all seven.
   ops.py          — public entry points; reads and resets the counts.
 """

@@ -47,6 +47,9 @@ SIGNATURES = {
     "repro_spmv_ell": [_P, _P, _P, _P, _I, _I, _P],
     "repro_ssm_scan": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _I,
                        _I, _I, _I, _I, _P],
+    "repro_ssm_scan_bwd": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -2,7 +2,8 @@
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors (see :mod:`repro_torch.kernels._launch`).
-Every kernel of the reference (K1-K6) has its CUDA counterpart.
+Every kernel of the reference (K1-K6) has its CUDA counterpart; K6b, the
+gradient of K6, is the port's own (the reference differentiates a scan).
 
 :func:`launch_counts` reads every kernel's launch count and
 :func:`reset_launches` sets them all to zero, so a run can show which
@@ -22,7 +23,7 @@ from repro_torch.kernels.vcycle_fused import (  # noqa: F401
 
 
 def launch_counts() -> dict:
-    """``{kernel name: launches}`` over K1-K6 since the last reset."""
+    """``{kernel name: launches}`` over K1-K6b since the last reset."""
     with _launch.launches_lock:
         return dict(_launch.launches)
 
@@ -47,6 +48,7 @@ def spmv(idx, val, x):
 
 spmv_batched = spmv_ell_batched
 ssm_scan = _ssm_scan.ssm_scan   # K6; any d_inner
+ssm_scan_bwd = _ssm_scan.ssm_scan_bwd   # K6b, K6's gradient
 similarity_mark_ref = _ref.similarity_mark_ref
 spmv_ref = _ref.spmv_ell_ref
 spmv_batched_ref = _ref.spmv_ell_batched_ref

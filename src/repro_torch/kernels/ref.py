@@ -12,7 +12,10 @@ add per term; the kernels are built without FMA contraction, so K1, K2,
 K3 and K5 agree bit for bit with their plain versions on the card.  K4's
 output is boolean, so it is bit-identical whatever order the work runs in.
 K6's scan rounds each product and sum on its own and sums over the state
-in ascending order (:func:`ssm_readout`), as its kernel does.
+in ascending order (:func:`ssm_readout`), as its kernel does; K6b, its
+gradient, also sums over the channels in its kernel's order
+(:func:`warp_partials`, then :func:`group_sum`), so every output of it is
+bitwise too.
 """
 from __future__ import annotations
 
@@ -203,3 +206,91 @@ def ssm_scan_ref(x1, dt, Bm, Cm, A, h0):
         h = da * h + dbx
         y[:, t] = ssm_readout(h, Cm[:, t])
     return y, h
+
+
+def warp_partials(p):
+    """K6b's per-warp sums over the channels: ``p [..., di, n]`` ->
+    ``[..., ceil(di / 32), n]``, each group of 32 channels (zero-padded
+    past ``di``) summed by recursive halving (pairs ``i, i + 16``, then
+    ``i, i + 8``, ...: the butterfly of ``__shfl_xor_sync``)."""
+    di = p.shape[-2]
+    pad = -di % 32
+    if pad:
+        p = torch.cat([p, p.new_zeros(p.shape[:-2] + (pad, p.shape[-1]))],
+                      dim=-2)
+    s = p.reshape(p.shape[:-2] + (p.shape[-2] // 32, 32, p.shape[-1]))
+    for half in (16, 8, 4, 2, 1):
+        s = s[..., :half, :] + s[..., half:, :]
+    return s[..., 0, :]
+
+
+def group_sum(s):
+    """``[..., groups, n]`` -> ``[..., n]``: the groups added one after
+    the other, the first group first (K6b's reduction kernel)."""
+    acc = s[..., 0, :]
+    for w in range(1, s.shape[-2]):
+        acc = acc + s[..., w, :]
+    return acc
+
+
+def ssm_scan_bwd_ref(x1, dt, Bm, Cm, A, h0, dy, dhT=None):
+    """The gradient of :func:`ssm_scan_ref` (K6b's plain version): given
+    ``dy [B, S, di]`` and ``dhT [B, di, state]`` (None: zeros), returns
+    ``(dx1, ddt, dBm, dCm, dA, dh0)``, float32, in the inputs' shapes.
+
+    The states are recomputed from ``h0`` in K6's order (no saved states
+    are read), then the reverse-time loop carries ``g``, the gradient of
+    ``h_t``, from ``dhT``; for t = S-1 ... 0, with ``a = exp(dt_t A)``,
+    ``u = dt_t x_t``::
+
+        g    = g + dy_t C_t                  (outer product)
+        dC_t = sum_d dy_t[d] h_t[d, :]       (warp_partials, group_sum)
+        dB_t = sum_d g[d, :] u[d]            (warp_partials, group_sum)
+        du   = sum_n g[:, n] B_t[n]          (n in order)
+        ga   = (g h_{t-1}) a
+        dA_b = dA_b + ga dt_t                (per batch row)
+        ddt  = (sum_n ga[:, n] A[:, n]) + du x_t
+        dx   = du dt_t
+        g    = g a
+
+    then ``dh0 = g`` and ``dA`` the rows' ``dA_b`` added in row order.
+    Each operation rounds on its own, in the order of K6b
+    (``csrc/ssm_scan_bwd.cu``), so on the card the two agree bit for bit."""
+    x1, dt, Bm, Cm, A, h0, dy = (t.float() for t in
+                                 (x1, dt, Bm, Cm, A, h0, dy))
+    Bsz, S, di = x1.shape
+    hs = []
+    h = h0
+    for t in range(S):
+        da = torch.exp(dt[:, t, :, None] * A)
+        h = da * h + (dt[:, t] * x1[:, t])[:, :, None] * Bm[:, t, None, :]
+        hs.append(h)
+    g = torch.zeros_like(h0) if dhT is None else dhT.float()
+    dA_b = torch.zeros_like(h0)
+    dx, ddt = torch.empty_like(x1), torch.empty_like(x1)
+    # the warp partials of every step; their groups are summed at the end
+    nw = -(-di // 32)
+    dB, dC = (x1.new_empty((Bsz, S, nw, A.shape[1])) for _ in range(2))
+    for t in reversed(range(S)):
+        h_t = hs[t]
+        h_prev = hs[t - 1] if t else h0
+        dt_t, x_t = dt[:, t], x1[:, t]
+        u = dt_t * x_t
+        a = torch.exp(dt_t[:, :, None] * A)
+        g = g + dy[:, t, :, None] * Cm[:, t, None, :]
+        dC[:, t] = warp_partials(dy[:, t, :, None] * h_t)
+        dB[:, t] = warp_partials(g * u[:, :, None])
+        du = ssm_readout(g, Bm[:, t])
+        ga = (g * h_prev) * a
+        dA_b = dA_b + ga * dt_t[:, :, None]
+        ga_a = ga * A
+        sa = ga_a[..., 0]
+        for n in range(1, A.shape[1]):
+            sa = sa + ga_a[..., n]
+        ddt[:, t] = sa + du * x_t
+        dx[:, t] = du * dt_t
+        g = g * a
+    dA = dA_b[0]
+    for b in range(1, Bsz):
+        dA = dA + dA_b[b]
+    return dx, ddt, group_sum(dB), group_sum(dC), dA, g

@@ -1,12 +1,16 @@
-"""Fused Mamba1 selective scan (K6) for the H100.
+"""Fused Mamba1 selective scan (K6) and its gradient (K6b) for the H100.
 
 The port of ``repro.kernels.ssm_scan``.  :func:`ssm_scan` launches the
 hand-written CUDA kernel (``kernels/csrc/ssm_scan.cu``) when its tensors lie
 on a CUDA device and runs the plain version
 (:func:`repro_torch.kernels.ref.ssm_scan_ref`) when they lie on the CPU.
-Each launch adds one to its count in
-:data:`repro_torch.kernels._launch.launches`.  It carries every Mamba
-layer's prefill scan on the card (:func:`repro_torch.models.layers.mamba_scan`).
+:func:`ssm_scan_bwd` is its gradient, K6b (``kernels/csrc/ssm_scan_bwd.cu``,
+plain version :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`), which the
+reference has no kernel for: it differentiates its ``lax.scan``.
+:class:`SsmScan` joins the two into an autograd function, which every
+Mamba layer's scan runs through (:func:`repro_torch.models.layers.mamba_scan`),
+serving and training, on both routes.  Each launch adds one to its count
+in :data:`repro_torch.kernels._launch.launches`.
 """
 from __future__ import annotations
 
@@ -18,23 +22,12 @@ from repro_torch.kernels._launch import count, on_cuda, require, stream
 STATES = (4, 8, 16)   # the CUDA kernel's template instances
 
 
-def ssm_scan(x1, dt, Bm, Cm, A, h0):
-    """Fused selective scan.  Shapes: x1/dt ``[B, S, di]``; Bm/Cm
-    ``[B, S, state]``; A ``[di, state]``; h0 ``[B, di, state]``, any float
-    type.  The result is that of every input cast to float32 first, as the
-    reference's wrapper does.  Returns y ``[B, S, di]`` (before the D skip)
-    and hT ``[B, di, state]``, float32.  Any ``di`` (no block-size
-    multiple).
-
-    On the card the kernel reads x1, dt, Bm and Cm as they come when all
-    four are bf16 (the serving path's) or all float32, converting in
-    registers (exact); any other mix is cast to float32 first.  Bm and Cm
-    may be strided views (unit stride over the state), as the model's
-    slices of the ``x_proj`` output are: no copy is made."""
-    if not on_cuda(x1, dt, Bm, Cm, A, h0):
-        return _ref.ssm_scan_ref(x1, dt, Bm, Cm, A, h0)
-    from repro_torch.kernels._build import check, library
-
+def _io_operands(x1, dt, Bm, Cm, A, h0):
+    """The operands as the kernels take them: x1, dt, Bm, Cm all bf16 when
+    all four are (the serving and training paths'), else float32; x1 and
+    dt contiguous, Bm and Cm with unit stride over the state (strided
+    views of ``x_proj``'s output pass as they are); A and h0 float32.
+    Checks shapes and the state; returns the operands and the io type."""
     for t, name in ((Bm, "Bm"), (Cm, "Cm")):
         if t.dim() != 3:
             raise ValueError(f"{name} must be 3-D, got shape "
@@ -43,7 +36,7 @@ def ssm_scan(x1, dt, Bm, Cm, A, h0):
                                 for t in (x1, dt, Bm, Cm))
           else torch.float32)
     x1, dt = (t.to(io).contiguous() for t in (x1, dt))
-    # the kernel reads B and C through their batch and step strides
+    # the kernels read B and C through their batch and step strides
     Bm, Cm = (t.to(io) if t.stride(2) == 1 else t.to(io).contiguous()
               for t in (Bm, Cm))
     A, h0 = (t.float().contiguous() for t in (A, h0))
@@ -65,6 +58,29 @@ def ssm_scan(x1, dt, Bm, Cm, A, h0):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
                              f"{shape}")
+    return (x1, dt, Bm, Cm, A, h0), io
+
+
+def ssm_scan(x1, dt, Bm, Cm, A, h0):
+    """Fused selective scan.  Shapes: x1/dt ``[B, S, di]``; Bm/Cm
+    ``[B, S, state]``; A ``[di, state]``; h0 ``[B, di, state]``, any float
+    type.  The result is that of every input cast to float32 first, as the
+    reference's wrapper does.  Returns y ``[B, S, di]`` (before the D skip)
+    and hT ``[B, di, state]``, float32.  Any ``di`` (no block-size
+    multiple).
+
+    On the card the kernel reads x1, dt, Bm and Cm as they come when all
+    four are bf16 (the serving path's) or all float32, converting in
+    registers (exact); any other mix is cast to float32 first.  Bm and Cm
+    may be strided views (unit stride over the state), as the model's
+    slices of the ``x_proj`` output are: no copy is made."""
+    if not on_cuda(x1, dt, Bm, Cm, A, h0):
+        return _ref.ssm_scan_ref(x1, dt, Bm, Cm, A, h0)
+    from repro_torch.kernels._build import check, library
+
+    (x1, dt, Bm, Cm, A, h0), io = _io_operands(x1, dt, Bm, Cm, A, h0)
+    B, S, di = x1.shape
+    state = A.shape[1]
     y = torch.empty((B, S, di), dtype=torch.float32, device=x1.device)
     hT = torch.empty((B, di, state), dtype=torch.float32, device=x1.device)
     check(library().repro_ssm_scan(
@@ -74,3 +90,71 @@ def ssm_scan(x1, dt, Bm, Cm, A, h0):
         state, int(io == torch.bfloat16), stream()), "ssm_scan")
     count("ssm_scan")
     return y, hT
+
+
+def ssm_scan_bwd(x1, dt, Bm, Cm, A, h0, dy, dhT=None):
+    """K6b: the gradient of :func:`ssm_scan`.  Takes its inputs (as
+    :func:`ssm_scan` takes them), ``dy [B, S, di]`` and ``dhT [B, di,
+    state]`` (None: zeros); returns ``(dx1, ddt, dBm, dCm, dA, dh0)``,
+    float32, each in its input's shape.
+
+    On the card one call is two launches (the scan and the fixed-order
+    reduction of its partial sums, counted once as ``ssm_scan_bwd``) and
+    takes a float32 scratch stack of every state, ``[B, S, di, state]``
+    (3.36 GB at hymba-1.5b's training shape), freed on return.  Bitwise
+    equal to :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`, which runs
+    on CPU tensors."""
+    if not on_cuda(x1, dt, Bm, Cm, A, h0, dy, dhT):
+        return _ref.ssm_scan_bwd_ref(x1, dt, Bm, Cm, A, h0, dy, dhT)
+    from repro_torch.kernels._build import check, library
+
+    (x1, dt, Bm, Cm, A, h0), io = _io_operands(x1, dt, Bm, Cm, A, h0)
+    B, S, di = x1.shape
+    state = A.shape[1]
+    dy = dy.float().contiguous()
+    gT = (torch.zeros_like(h0) if dhT is None
+          else dhT.float().contiguous())
+    for t, name, shape in ((dy, "dy", (B, S, di)),
+                           (gT, "dhT", (B, di, state))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
+                             f"{shape}")
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x1.device)
+
+    nw = -(-di // 32)
+    hbuf, part_bc, part_a = (f32(B, S, di, state), f32(B, S, nw, 2 * state),
+                             f32(B, di, state))
+    dx, ddt, dB, dC = f32(B, S, di), f32(B, S, di), f32(B, S, state), \
+        f32(B, S, state)
+    dA, dh0 = f32(di, state), f32(B, di, state)
+    check(library().repro_ssm_scan_bwd(
+        x1.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+        A.data_ptr(), h0.data_ptr(), dy.data_ptr(), gT.data_ptr(),
+        hbuf.data_ptr(), dx.data_ptr(), ddt.data_ptr(), part_bc.data_ptr(),
+        part_a.data_ptr(), dh0.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dA.data_ptr(), B, S, di, state, int(io == torch.bfloat16),
+        stream()), "ssm_scan_bwd")
+    count("ssm_scan_bwd")
+    return dx, ddt, dB, dC, dA, dh0
+
+
+class SsmScan(torch.autograd.Function):
+    """``(y, hT) = ssm_scan(x1, dt, Bm, Cm, A, h0)`` with its gradient:
+    K6 forward and K6b backward on CUDA tensors, the plain versions on CPU
+    tensors.  Saves only the inputs (K6b recomputes the states); the
+    gradients come back in each input's own dtype and shape (``Bm`` and
+    ``Cm`` may be strided views)."""
+
+    @staticmethod
+    def forward(ctx, x1, dt, Bm, Cm, A, h0):
+        ctx.save_for_backward(x1, dt, Bm, Cm, A, h0)
+        return ssm_scan(x1, dt, Bm, Cm, A, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        ins = ctx.saved_tensors
+        grads = ssm_scan_bwd(*ins, dy, dhT)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, ins))

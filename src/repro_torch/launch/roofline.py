@@ -259,6 +259,31 @@ def ssm_scan_expf_ms(B: int, S: int, di: int, state: int,
                                  * sm_clock_mhz * 1e6) * 1e3
 
 
+def ssm_scan_bwd_launch(B: int, S: int, di: int, state: int, x_bytes: int,
+                        bc_bytes: int):
+    """K6b on ``x``/``dt`` of ``x_bytes`` a value and ``B``/``C`` of
+    ``bc_bytes``: the inputs read once (``x``, ``dt``, ``B``, ``C``,
+    ``A``, ``h0``, ``dy`` and ``dhT``, the last two float32) and the
+    outputs written once (``dx``, ``ddt``, ``dB``, ``dC``, ``dA``,
+    ``dh0``, float32); 23 operations a (batch, step, channel, state) cell
+    (5 to recompute the state, 16 in the reverse step, 2 in the sums of
+    ``dB`` and ``dC`` over the channels; an exponential counts one) and 5
+    a (batch, step, channel)."""
+    cells = B * S * di * state
+    nbytes = (2 * B * S * di * x_bytes + 2 * B * S * state * bc_bytes
+              + 4 * di * state + 8 * B * di * state + 4 * B * S * di
+              + 8 * B * S * di + 8 * B * S * state + 4 * di * state
+              + 4 * B * di * state)
+    return nbytes, 23 * cells + 5 * B * S * di
+
+
+def ssm_scan_bwd_stack_bytes(B: int, S: int, di: int, state: int) -> int:
+    """K6b's own traffic beyond :func:`ssm_scan_bwd_launch`: its float32
+    stack of the states ``h_t``, t < S - 1, written by its forward pass
+    and read by its reverse pass."""
+    return 2 * 4 * B * (S - 1) * di * state
+
+
 def similarity_mark_launch(args):
     """K4 on these inputs, ``args = (csu, csv, cbeta, cseg, esu, esv,
     eseg)``: every row's subtask id read and its output byte written, the

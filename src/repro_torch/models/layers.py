@@ -1,10 +1,13 @@
 """Model layers of the port: norms, rope, attention, MLPs, MoE and Mamba1.
 
-The port of ``repro.models.layers`` for serving every family: pure
-functions over a dict of one layer's weights, as the reference's, and the
-``nn.Module``s that hold them (:class:`Attention`, :class:`MLP`,
-:class:`MoE`, :class:`MambaMixer`).  The training forward
-(``attention_train``) is not ported yet (ROADMAP queue 1, training).
+The port of ``repro.models.layers`` for serving and training every
+family: pure functions over a dict of one layer's weights, as the
+reference's, and the ``nn.Module``s that hold them (:class:`Attention`,
+:class:`MLP`, :class:`MoE`, :class:`MambaMixer`).  Every function is
+differentiable: weights are cast at each use (``.to(x.dtype)``), so the
+gradient of a float32 weight used in bf16 reaches it in float32, and the
+Mamba scan runs through :class:`repro_torch.kernels.ssm_scan.SsmScan` (K6
+forward, K6b backward on the card).
 
 Attention is plain PyTorch: the reference computes it outside any Pallas
 kernel, and its online softmax over blocks rounds otherwise than one
@@ -14,10 +17,10 @@ Arithmetic follows the reference as its serving path runs it.  Its
 prefill runs eagerly, so each bf16 operation rounds its result to bf16, as
 PyTorch does; but its selective scan is compiled (``lax.scan``) and its
 decode step jitted, and there XLA keeps the bf16 product ``dt * B`` in
-float32 (excess precision), where it is exact.  So :func:`_ssm_step` casts
-``dt`` and ``B`` to float32 before it multiplies them.  With bf16 inputs
-``(dt * B) * x`` (this order) and ``(dt * x) * B`` (K6's) are then both
-exact in float32, and the CPU scan equals K6 bit for bit.
+float32 (excess precision), where it is exact.  So :func:`_ssm_step` (the
+decode step) casts ``dt`` and ``B`` to float32 before it multiplies them.
+With bf16 inputs ``(dt * B) * x`` (this order) and ``(dt * x) * B`` (K6's,
+which the scan runs on both routes) are then both exact in float32.
 """
 from __future__ import annotations
 
@@ -29,9 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels import ops as kops
-from repro_torch.kernels._launch import on_cuda
 from repro_torch.kernels.ref import ssm_readout
+from repro_torch.kernels.ssm_scan import SsmScan
 from repro_torch.models.config import ModelConfig
 
 
@@ -155,6 +157,22 @@ def blockwise_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, kind: int,
         out = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
         outs.append(out.transpose(1, 2).reshape(B, q_block, H * hd))
     return torch.cat(outs, dim=1)
+
+
+def attention_train(x, p, cfg: ModelConfig, kind: int, positions=None,
+                    return_kv: bool = False):
+    """Full-sequence attention for training and prefill: x [B,S,d] ->
+    [B,S,d] (with ``return_kv`` also the roped k and the v, [B,S,KV,hd]).
+    ``positions`` [S] default to ``0..S-1``."""
+    S = x.shape[1]
+    pos = (positions if positions is not None
+           else torch.arange(S, device=x.device))
+    q, k, v = _qkv(x, p, cfg)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    o = blockwise_attention(q, k, v, pos, pos, cfg, kind)
+    out = o @ p["wo"].to(x.dtype)
+    return (out, (k, v)) if return_kv else out
 
 
 def attention_decode(x, p, cfg: ModelConfig, kind: int, cache_k, cache_v,
@@ -402,22 +420,15 @@ def _ssm_step(h, x_t, dt_t, B_t, C_t, A):
 def mamba_scan(x1, dt, Bm, Cm, A, D, h0, chunk: int):
     """Selective scan with the D skip.  x1 [B,S,di] -> y [B,S,di] f32, h.
 
-    On CUDA tensors it launches K6 (:func:`repro_torch.kernels.ops.ssm_scan`)
-    and adds the D skip; on CPU tensors it runs the scan step by step
-    (:func:`_ssm_step`).  ``chunk`` is the reference's rematerialisation
-    unit, which an eager scan has no use for; its ``S % chunk == 0`` check
-    is kept on both routes."""
-    B, S, di = x1.shape
+    The scan is :class:`~repro_torch.kernels.ssm_scan.SsmScan`: K6 forward
+    and K6b backward on CUDA tensors, their plain versions on CPU tensors.
+    ``chunk`` is the reference's rematerialisation unit, which the port has
+    no use for (K6b recomputes the states itself); its ``S % chunk == 0``
+    check is kept on both routes."""
+    S = x1.shape[1]
     chunk = min(chunk, S)
     assert S % chunk == 0
-    if on_cuda(x1, dt, Bm, Cm, A, h0):
-        y, h = kops.ssm_scan(x1, dt, Bm, Cm, A, h0)
-    else:
-        y = torch.empty((B, S, di), dtype=torch.float32, device=x1.device)
-        h = h0
-        for t in range(S):
-            h, y[:, t] = _ssm_step(h, x1[:, t], dt[:, t], Bm[:, t], Cm[:, t],
-                                   A)
+    y, h = SsmScan.apply(x1, dt, Bm, Cm, A, h0)
     y = y + D[None, None, :] * x1.float()
     return y, h
 

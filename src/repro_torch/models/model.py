@@ -1,6 +1,8 @@
-"""Model assembly of the port: init, prefill, decode.
+"""Model assembly of the port: init, the training forward and loss,
+prefill, decode.
 
-The port of ``repro.models.model`` for serving every family: ``ssm``
+The port of ``repro.models.model`` for serving and training every
+family: ``ssm``
 (falcon-mamba-7b), ``hybrid`` (hymba-1.5b), ``dense`` (qwen3-4b,
 gemma2-2b, phi3-medium-14b, starcoder2-15b), ``moe`` (mixtral-8x22b,
 arctic-480b with its dense residual), ``vlm`` (phi-3-vision-4.2b: a
@@ -20,14 +22,30 @@ attention_decode` reads and overwrites.  The reference writes the last
 ``C`` divides ``S``; at other lengths its first decode steps overwrite
 positions still inside a window (ROADMAP queue 3).
 
-Training (``forward_hidden``, ``loss_fn``, ``chunked_ce_loss``) is not
-ported yet (ROADMAP queue 1, training).
+Training: :func:`forward_hidden` (the backbone over a batch: a VLM's
+patch prefix masked out of the loss, an encoder-decoder's ``src`` through
+:func:`encode`, the MoE aux loss summed over layers),
+:func:`chunked_ce_loss` (4096-token chunks, the padded vocabulary masked)
+and :func:`loss_fn`.  With ``remat`` every layer runs under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint``: only each layer's input is kept, and the
+layer is run again in the backward; every CE chunk runs so always, as
+the reference's do.  The parameters are built with
+``requires_grad=False`` (serving needs no graph); a trainer turns
+gradients on.  One parting in bf16 compute: the reference casts every
+per-layer leaf to the compute dtype before its layer scan, norms,
+``A_log`` and ``D`` included; the port keeps those in float32, as its
+serving path does (float32 compute, where the parity tests run, is the
+same).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -260,28 +278,39 @@ def _logits(model: LM, cfg: ModelConfig, x):
 
 def _ffn(layer: Layer, cfg: ModelConfig, h):
     """The feed-forward branch on the normed ``h``: the MLP, or the MoE
-    (plus the MLP with ``dense_residual``).  The MoE's aux loss has no
-    consumer in serving."""
+    (plus the MLP with ``dense_residual``).  Returns (output, the MoE's
+    aux loss or None); serving drops the aux loss."""
     if cfg.family != "moe":
-        return layer.mlp(h)
-    o = layer.moe(h).y
-    return o + layer.mlp(h) if cfg.dense_residual else o
+        return layer.mlp(h), None
+    mo = layer.moe(h)
+    o = mo.y + layer.mlp(h) if cfg.dense_residual else mo.y
+    return o, mo.aux_loss
+
+
+def _enc_kv(layer: Layer, cfg: ModelConfig, enc_out):
+    """A decoder layer's cross-attention ``ek``, ``ev`` [B, Ss, KV, hd]
+    from the encoder's output."""
+    xp = layer.xattn.weights()
+    d, KV, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
+    shape = enc_out.shape[:2] + (KV, hd)
+    return tuple((enc_out @ xp[w].to(enc_out.dtype).reshape(d, KV * hd))
+                 .view(shape) for w in ("wk", "wv"))
 
 
 def _rest_of_layer(layer: Layer, cfg: ModelConfig, x, o, enc_kv=None):
     """The attention branch's output ``o`` added, then the cross-attention
     on ``enc_kv = (ek, ev)`` (a decoder of an encoder-decoder), then the
-    feed-forward branch's."""
+    feed-forward branch's.  Returns (x, the MoE's aux loss or None)."""
     if cfg.sandwich_norm:
         o = _norm(o, layer.ln1_post, cfg, post=True)
     x = x + o
     if enc_kv is not None:
         hx = L.rmsnorm(x, layer.ln_x, cfg.norm_eps)
         x = x + L.cross_attention(hx, layer.xattn.weights(), cfg, *enc_kv)
-    o = _ffn(layer, cfg, _norm(x, layer.ln2, cfg))
+    o, aux = _ffn(layer, cfg, _norm(x, layer.ln2, cfg))
     if cfg.sandwich_norm:
         o = _norm(o, layer.ln2_post, cfg, post=True)
-    return x + o
+    return x + o, aux
 
 
 @torch.no_grad()
@@ -307,8 +336,9 @@ def decode_step(model: LM, cfg: ModelConfig, caches, token, pos: int):
                 pos)
             if cfg.family == "hybrid":
                 o = 0.5 * (o + s)
-            x = _rest_of_layer(layer, cfg, x, o,
-                               (c["ek"], c["ev"]) if cfg.enc_layers else None)
+            x, _ = _rest_of_layer(
+                layer, cfg, x, o,
+                (c["ek"], c["ev"]) if cfg.enc_layers else None)
         new_caches.append(c)
     return _logits(model, cfg, x[:, 0, :]), new_caches
 
@@ -333,18 +363,24 @@ def _ssm_prefill(mixer: L.MambaMixer, cfg: ModelConfig, h):
     return y @ p["out_proj"].to(h.dtype), hfin, x1[:, S - (k - 1):].clone()
 
 
-def encode(model: LM, cfg: ModelConfig, src):
+def _encoder_layer(layer: Layer, cfg: ModelConfig, x):
+    h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
+    x = x + L.encoder_attention(h, layer.attn.weights(), cfg)
+    h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
+    return x + layer.mlp(h)
+
+
+def encode(model: LM, cfg: ModelConfig, src, remat: bool = False):
     """The encoder stack over the source frames ``src [B, Ss,
     frontend_dim]`` (projected by ``frontend_proj`` where the model has
-    one), then ``enc_norm``: ``[B, Ss, d]`` in the compute dtype."""
+    one), then ``enc_norm``: ``[B, Ss, d]`` in the compute dtype.  With
+    ``remat`` each layer runs under ``checkpoint``."""
     x = src.to(_cdtype(cfg))
     if cfg.frontend:
         x = x @ model.frontend_proj.to(x.dtype)
     for layer in model.encoder:
-        h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
-        x = x + L.encoder_attention(h, layer.attn.weights(), cfg)
-        h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
-        x = x + layer.mlp(h)
+        fn = functools.partial(_encoder_layer, layer, cfg)
+        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
     return L.rmsnorm(x, model.enc_norm, cfg.norm_eps)
 
 
@@ -380,12 +416,8 @@ def prefill(model: LM, cfg: ModelConfig, tokens, cache_len: int,
         if cfg.family == "ssm":
             x = x + s
             continue
-        p = layer.attn.weights()
-        q, kk, vv = L._qkv(h, p, cfg)
-        q = L.rope(q, pos, cfg.rope_theta)
-        kk = L.rope(kk, pos, cfg.rope_theta)
-        o = L.blockwise_attention(q, kk, vv, pos, pos, cfg, kind)
-        o = o @ p["wo"].to(x.dtype)
+        o, (kk, vv) = L.attention_train(h, layer.attn.weights(), cfg, kind,
+                                        positions=pos, return_kv=True)
         C = c["k"].shape[1]
         keep = pos[S_all - min(C, S_all):]
         c["k"][:, keep % C] = kk[:, keep]
@@ -395,13 +427,110 @@ def prefill(model: LM, cfg: ModelConfig, tokens, cache_len: int,
             o = 0.5 * (o + s)
         enc_kv = None
         if enc_out is not None:
-            xp = layer.xattn.weights()
-            d, KV, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
-            shape = enc_out.shape[:2] + (KV, hd)
-            c["ek"] = (enc_out @ xp["wk"].to(x.dtype).reshape(d, KV * hd)
-                       ).view(shape)
-            c["ev"] = (enc_out @ xp["wv"].to(x.dtype).reshape(d, KV * hd)
-                       ).view(shape)
-            enc_kv = (c["ek"], c["ev"])
-        x = _rest_of_layer(layer, cfg, x, o, enc_kv)
+            c["ek"], c["ev"] = enc_kv = _enc_kv(layer, cfg, enc_out)
+        x, _ = _rest_of_layer(layer, cfg, x, o, enc_kv)
     return _logits(model, cfg, x[:, -1, :]), caches
+
+
+# ---------------------------------------------------------------------------
+# training: forward, chunked loss
+# ---------------------------------------------------------------------------
+
+def _train_layer(layer: Layer, cfg: ModelConfig, kind: int, x, enc_out):
+    """One layer of the training forward over the whole sequence: the
+    block of :class:`Layer` on ``x [B, S, d]``, with ``enc_out`` the
+    encoder's output for an encoder-decoder's decoder (else None).
+    Returns (x, aux loss): the MoE's, zero elsewhere."""
+    h = _norm(x, layer.ln1, cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        s, _, _ = layer.ssm(h)
+    if cfg.family == "ssm":
+        return x + s, x.new_zeros((), dtype=torch.float32)
+    o = L.attention_train(h, layer.attn.weights(), cfg, kind)
+    if cfg.family == "hybrid":
+        o = 0.5 * (o + s)
+    enc_kv = None if enc_out is None else _enc_kv(layer, cfg, enc_out)
+    x, aux = _rest_of_layer(layer, cfg, x, o, enc_kv)
+    return x, (x.new_zeros((), dtype=torch.float32) if aux is None
+               else aux)
+
+
+def forward_hidden(model: LM, cfg: ModelConfig, batch, remat: bool = True):
+    """The backbone over ``batch`` (tensors on the model's device):
+    ``tokens [B, S]``; a VLM's ``frontend [B, P, frontend_dim]``, projected
+    and put before the text; an encoder-decoder's ``src [B, Ss,
+    frontend_dim]`` through :func:`encode`.  Returns (hidden [B, S_all,
+    d] after the final norm, the MoE aux loss summed over layers,
+    loss_mask [B, S_all]: False on a VLM's patch positions).  With
+    ``remat`` each layer (and encoder layer) runs under ``checkpoint``."""
+    tokens = batch["tokens"]
+    x = embed_tokens(model, cfg, tokens)
+    loss_mask = torch.ones(tokens.shape, dtype=torch.bool,
+                           device=tokens.device)
+    if cfg.frontend and cfg.enc_layers == 0:    # VLM: patch prefix
+        fx = batch["frontend"].to(x.dtype) @ model.frontend_proj.to(x.dtype)
+        x = torch.cat([fx, x], dim=1)
+        loss_mask = torch.cat([torch.zeros(fx.shape[:2], dtype=torch.bool,
+                                           device=tokens.device),
+                               loss_mask], dim=1)
+    enc_out = (encode(model, cfg, batch["src"], remat) if cfg.enc_layers
+               else None)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for layer, kind in zip(model.layers, _kinds(cfg)):
+        fn = functools.partial(_train_layer, layer, cfg, kind)
+        x, a = (checkpoint(fn, x, enc_out, use_reentrant=False) if remat
+                else fn(x, enc_out))
+        aux = aux + a
+    return L.rmsnorm(x, model.final_norm, cfg.norm_eps), aux, loss_mask
+
+
+def _ce_chunk(cfg: ModelConfig, hs, ls, ms, W):
+    """One chunk's summed negative log-likelihood and token count:
+    ``hs [c, d]``, labels ``ls [c]``, mask ``ms [c]`` float, ``W [d, Vp]``
+    in the compute dtype; the padded vocabulary's columns are masked."""
+    logits = L.softcap((hs @ W).float(), cfg.logit_softcap)
+    pad_col = torch.arange(W.shape[1], device=W.device) >= cfg.vocab
+    logits = torch.where(pad_col[None, :], -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    # indexing, not gather: its backward adds with a deterministic kernel
+    # under torch.use_deterministic_algorithms
+    gold = logits[torch.arange(ls.shape[0], device=ls.device), ls.long()]
+    return ((lse - gold) * ms).sum(), ms.sum()
+
+
+def chunked_ce_loss(model: LM, cfg: ModelConfig, hidden, labels, loss_mask,
+                    chunk: int = 4096):
+    """Cross-entropy over the text positions (the last ``labels.shape[1]``
+    of ``hidden``, behind any modality prefix) without the ``[B, S, V]``
+    logits: ``chunk`` tokens at a time (``T % chunk == 0`` is asserted, as
+    the reference does), each chunk under ``checkpoint`` (the reference's
+    ``jax.checkpoint``, whatever its ``remat``): one chunk's logits live
+    at a time.  The mean over the masked-in tokens."""
+    W = (model.embed.T if cfg.tie_embeddings else model.lm_head
+         ).to(_cdtype(cfg))
+    B, S_all, d = hidden.shape
+    S_txt = labels.shape[1]
+    T = B * S_txt
+    hf = hidden[:, S_all - S_txt:, :].reshape(T, d)
+    lf = labels.reshape(T)
+    mf = loss_mask[:, S_all - S_txt:].reshape(T).float()
+    chunk = min(chunk, T)
+    assert T % chunk == 0
+    fn = functools.partial(_ce_chunk, cfg)
+    loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, T, chunk):
+        args = (hf[i:i + chunk], lf[i:i + chunk], mf[i:i + chunk], W)
+        nll, n = checkpoint(fn, *args, use_reentrant=False)
+        loss, cnt = loss + nll, cnt + n
+    return loss / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(model: LM, cfg: ModelConfig, batch, remat: bool = True,
+            aux_weight: float = 0.01):
+    """``(ce + aux_weight * aux, {"ce": ce, "aux": aux})`` over ``batch``
+    (``tokens``, ``labels [B, S]``, and ``frontend`` or ``src`` where the
+    family takes one)."""
+    hidden, aux, loss_mask = forward_hidden(model, cfg, batch, remat)
+    ce = chunked_ce_loss(model, cfg, hidden, batch["labels"], loss_mask)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}

@@ -1,6 +1,6 @@
-"""The CUDA kernels K1-K6 against their plain PyTorch versions, and the
-port's service, sharded planes, the production dry run and LM serving
-paths (every family), on the card.
+"""The CUDA kernels K1-K6 and K6b (K6's gradient) against their plain
+PyTorch versions, and the port's service, sharded planes, the production
+dry run, LM serving paths (every family) and training, on the card.
 
 Every ``gpu``-marked test needs a CUDA device and skips without one
 (decided in a fixture).  The file imports no JAX, so it runs on a machine
@@ -939,8 +939,196 @@ def test_gpu_cuda_check_over_the_built_library(cuda):
             "cheby_smooth_zero_kernel", "cheby_prolong_step_kernel",
             "restrict_residual_any", "restrict_residual_vec",
             "spmv_ell_kernel", "stream_kernel", "rows_kernel",
-            "ssm_scan_kernel"} <= names
+            "ssm_scan_kernel", "ssm_scan_bwd_kernel",
+            "ssm_scan_bwd_reduce_kernel"} <= names
     assert all(k.registers > 0 for k in kernels)
+
+
+# -- K6b and training ------------------------------------------------------
+
+def _k6b_inputs(gen, cuda, B, S, di, state, dtype, rank=None):
+    """K6b's operands: x, dt, B, C (of ``dtype``; B and C strided views of
+    one x_proj-like output when ``rank`` is given), A, h0, dy, dhT."""
+    x1 = torch.randn((B, S, di), generator=gen, device=cuda).to(dtype)
+    dt = (0.1 * torch.rand((B, S, di), generator=gen, device=cuda)
+          ).to(dtype)
+    if rank is None:
+        Bm, Cm = (torch.randn((B, S, state), generator=gen, device=cuda)
+                  .to(dtype) for _ in range(2))
+    else:
+        xdbc = torch.randn((B, S, rank + 2 * state), generator=gen,
+                           device=cuda).to(dtype)
+        Bm, Cm = xdbc[..., rank:rank + state], xdbc[..., rank + state:]
+    A = -torch.rand((di, state), generator=gen, device=cuda) - 0.1
+    h0 = torch.randn((B, di, state), generator=gen, device=cuda)
+    dy = torch.randn((B, S, di), generator=gen, device=cuda)
+    dhT = torch.randn((B, di, state), generator=gen, device=cuda)
+    return x1, dt, Bm, Cm, A, h0, dy, dhT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,di", [(1, 1, 8), (3, 37, 37), (2, 16, 100),
+                                    (1, 5, 300)])
+@pytest.mark.parametrize("state", [4, 8, 16])
+def test_gpu_k6b_bitwise_equal_to_plain(cuda, B, S, di, state):
+    """K6b against its plain version on the card: every output bitwise,
+    the reduced ones (dB, dC over the channels, dA over rows and steps)
+    too, since the plain version sums in the kernel's order; float32 and
+    bf16 inputs, nonzero h0 and dhT, odd di, S = 1 and S not a multiple of
+    16; two launches bitwise equal; each launch counted."""
+    gen = torch.Generator(device=cuda).manual_seed(B * 100 + S + di + state)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _k6b_inputs(gen, cuda, B, S, di, state, dtype)
+        before = kops.launch_counts()["ssm_scan_bwd"]
+        got = kops.ssm_scan_bwd(*args)
+        again = kops.ssm_scan_bwd(*args)
+        assert kops.launch_counts()["ssm_scan_bwd"] == before + 2
+        want = kref.ssm_scan_bwd_ref(*args)
+        for g, a, w in zip(got, again, want):
+            assert g.dtype == torch.float32 and g.shape == w.shape
+            assert torch.equal(g, w) and torch.equal(g, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rank", [5, 8])
+def test_gpu_k6b_strided_views_and_function(cuda, dtype, rank):
+    """B and C as strided views of one x_proj output: K6b reads them in
+    place, bitwise equal to the plain version on contiguous copies; through
+    ``SsmScan`` the gradients come back in each input's dtype, B's and C's
+    scattered into the output's columns, with one K6 and one K6b
+    launch."""
+    from repro_torch.kernels.ssm_scan import SsmScan
+
+    gen = torch.Generator(device=cuda).manual_seed(rank)
+    dtype = getattr(torch, dtype)
+    x1, dt, Bm, Cm, A, h0, dy, dhT = _k6b_inputs(gen, cuda, 2, 37, 100, 16,
+                                                 dtype, rank=rank)
+    assert not Bm.is_contiguous()
+    got = kops.ssm_scan_bwd(x1, dt, Bm, Cm, A, h0, dy, dhT)
+    want = kref.ssm_scan_bwd_ref(x1, dt, Bm.contiguous(), Cm.contiguous(),
+                                 A, h0, dy, dhT)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x1, dt, Bm._base, A, h0)]
+    xb = leaves[2]
+    before = kops.launch_counts()
+    y, hT = SsmScan.apply(leaves[0], leaves[1], xb[..., rank:rank + 16],
+                          xb[..., rank + 16:], leaves[3], leaves[4])
+    ((y * dy).sum() + (hT * dhT).sum()).backward()
+    after = kops.launch_counts()
+    assert after["ssm_scan"] == before["ssm_scan"] + 1
+    assert after["ssm_scan_bwd"] == before["ssm_scan_bwd"] + 1
+    assert leaves[0].grad.dtype == dtype and xb.grad.dtype == dtype
+    assert torch.equal(leaves[0].grad, want[0].to(dtype))
+    assert torch.equal(xb.grad[..., rank:rank + 16], want[2].to(dtype))
+    assert torch.equal(xb.grad[..., rank + 16:], want[3].to(dtype))
+    assert not xb.grad[..., :rank].any()
+    assert torch.equal(leaves[3].grad, want[4])
+
+
+@pytest.mark.gpu
+def test_gpu_k6b_rejects_what_it_cannot_take(cuda):
+    x = torch.zeros((1, 4, 8), device=cuda)
+    s5 = torch.zeros((1, 4, 5), device=cuda)
+    with pytest.raises(ValueError):   # no instance for state 5
+        kops.ssm_scan_bwd(x, x, s5, s5, torch.zeros((8, 5), device=cuda),
+                          torch.zeros((1, 8, 5), device=cuda), x)
+    s4 = torch.zeros((1, 4, 4), device=cuda)
+    with pytest.raises(ValueError):   # dy of another length
+        kops.ssm_scan_bwd(x, x, s4, s4, torch.zeros((8, 4), device=cuda),
+                          torch.zeros((1, 8, 4), device=cuda),
+                          torch.zeros((1, 3, 8), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_train_step_matches_cpu(cuda, dtype):
+    """Reduced hymba (attention and Mamba; 4 layers for a windowed layer),
+    the same weights and batch: one ``make_train_step`` on the card (K6
+    forward and in the recompute, K6b backward) and on the CPU (their
+    plain versions): the loss, every gradient by relative norm and the
+    parameters after the step, within the float32 bar 1e-4 (the devices'
+    matmuls sum in other orders, and Adam's update is lr-sized whatever
+    the gradient) or the bf16 bar 2e-2."""
+    import dataclasses
+
+    from repro_torch.train import (AdamWConfig, TrainConfig, init_opt_state,
+                                   make_batch, make_train_step)
+    from repro_torch.train.trainer import loss_and_grads
+
+    cfg = dataclasses.replace(reduced(get_config("hymba-1.5b")), n_layers=4,
+                              dtype=dtype)
+    bar = 1e-4 if dtype == "float32" else 2e-2
+    host = tmodel.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    batch = make_batch(cfg, 2, 32, step=0, seed=1)
+    tc = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1), remat=True)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = tmodel.LM(cfg, device="meta")
+        model.load_state_dict({k: v.to(dev, copy=True) for k, v in
+                               host.state_dict().items()}, assign=True)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        before = kops.launch_counts()
+        loss, _, grads = loss_and_grads(model, cfg, tc, b)
+        launched = {k: v - before[k] for k, v in kops.launch_counts().items()}
+        make_train_step(cfg, tc)(model, init_opt_state(model, tc.opt), {}, b)
+        out[str(dev)] = (float(loss), {k: g.cpu() for k, g in grads.items()},
+                         {k: p.detach().cpu() for k, p in
+                          model.named_parameters()}, launched)
+    (lc, gc, pc, nc), (lg, gg, pg, ng) = out["cpu"], out["cuda"]
+    assert not any(nc.values())
+    assert ng == dict.fromkeys(ng, 0) | {"ssm_scan": 2 * cfg.n_layers,
+                                         "ssm_scan_bwd": cfg.n_layers}
+    assert abs(lg - lc) <= bar * abs(lc)
+    for k in gc:
+        assert float((gg[k] - gc[k]).norm()) <= bar * float(
+            gc[k].norm()) + 1e-12, k
+        torch.testing.assert_close(pg[k], pc[k], rtol=bar, atol=bar)
+
+
+@pytest.mark.gpu
+def test_gpu_restart_bit_identical_under_deterministic_algorithms(cuda,
+                                                                  tmp_path):
+    """Reduced hymba on the card: a crash at step 3 and a restart from the
+    step-2 checkpoint give the uninterrupted run's losses and parameters
+    bit for bit.  Run with ``torch.use_deterministic_algorithms(True)``
+    (the embedding's backward otherwise adds with atomics); it needs
+    ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts, so the test runs
+    in a child process."""
+    code = f"""
+import os, sys
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+import dataclasses, torch
+sys.path.insert(0, {os.path.join(os.path.dirname(__file__), os.pardir, "src")!r})
+from repro_torch.configs import get_config, reduced
+from repro_torch.train import (AdamWConfig, ResilientTrainer, TrainConfig,
+                               batches)
+torch.use_deterministic_algorithms(True)
+cfg = dataclasses.replace(reduced(get_config("hymba-1.5b")), n_layers=4)
+tc = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=6))
+data = lambda s: batches(cfg, 2, 32, seed=5, start_step=s)
+root = {str(tmp_path)!r}
+def run(d, **kw):
+    return ResilientTrainer(cfg, tc, ckpt_dir=os.path.join(root, d),
+                            ckpt_every=2, device="cuda").run(
+        data, steps=6, seed=3, **kw)
+m1, _, l1 = run("a", resume=False)
+try:
+    run("b", resume=False, fail_at=3)
+    raise SystemExit("no simulated failure")
+except RuntimeError:
+    pass
+m3, _, l3 = run("b", resume=True)
+assert l3 == l1[2:], (l1, l3)
+for (n, a), (_, b) in zip(m1.named_parameters(), m3.named_parameters()):
+    assert torch.equal(a, b), n
+print("OK")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0 and "OK" in out.stdout, out.stderr[-3000:]
 
 
 def test_chip_smoke_takes_its_bounds_from_the_roofline_module():
