@@ -145,9 +145,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      tokens whose float32 routing parted counted, and its MoE outputs and
      every position's logits held before the first of them;
   7d. LM training: (a) K6b (K6's gradient) against its plain version at
-     B in {1, 3}, S in {1, 16, 37}, di in {8, 37, 100}, state in {4, 8,
-     16}, float32 and bf16, nonzero h0 and dhT, strided B/C views, and at
-     di = 3200 twice (two launches bitwise equal), every output bitwise;
+     B in {1, 3}, S in {1, R - 1, R, R + 1, 2 R + 3, 37} (R its run
+     length), di in {8, 37, 100}, state in {4, 8, 16}, float32 and bf16,
+     nonzero h0 and dhT, strided B/C views, and at di = 3200 twice (two
+     launches bitwise equal), every output bitwise;
      (c) hymba-1.5b's first 2 layers at full width, one batch of B = 1,
      S = 512: loss, every gradient (relative norm) and the parameters
      after one ``make_train_step``, card (K6, K6b) against CPU within
@@ -157,10 +158,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      S = 4096 (AdamW lr 1e-4, warmup 2, ``remat``): losses finite and the
      last three's mean below the first three's, K6 64 and K6b 32 launches
      a step; each loss, the median step ms of steps 2-8, tokens/s, peak
-     memory, then one more step under ``torch.profiler`` (busy share);
+     memory, then one more step under ``torch.profiler`` (busy share,
+     K6's and K6b's device ms and share of the step);
      (b) K6b at layer 0's inputs of that run, bitwise, timed beside its
-     bound and its plain version; (e) the first 2 layers, 6 steps of B =
-     2, S = 2048, a checkpoint every 2 and a simulated failure at step 3:
+     bound and its plain version, its scratch within the closed forms of
+     its checkpoints and partial sums plus 10% and under 0.5 GB; (e) the
+     first 2 layers, 6 steps of B = 2, S = 2048, a checkpoint every 2 and
+     a simulated failure at step 3:
      the restarted run's losses and final parameters bitwise equal to an
      uninterrupted run's, under ``torch.use_deterministic_algorithms``
      (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts), each save's
@@ -223,6 +227,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2616,15 +2621,20 @@ def k6b_same(torch, got, want, label):
 
 def k6b_edge_checks(torch, kops, ref):
     """Phase 7d (a): K6b against its plain version at B in {1, 3}, S in {1,
-    16, 37}, di in {8, 37, 100}, state in {4, 8, 16}, float32 and bf16
-    inputs, nonzero h0 and dhT; B and C as strided views (rank 8 and di 96,
-    rank 5 and di 100); and at hymba's width (di 3200, 100 warps a row,
-    strided B and C) twice: the two launches bitwise equal.  Every output
-    bitwise."""
+    R - 1, R, R + 1, 2 R + 3, 37} (R its run length: a run cut short, one
+    run, and a checkpoint read back), di in {8, 37, 100} (one block of 32
+    channels, part of a second, four), state in {4, 8, 16}, float32 and
+    bf16 inputs, nonzero h0 and dhT; B and C as strided views (rank 8 and
+    di 96, rank 5 and di 100); and at hymba's width (di 3200, 100 blocks a
+    row, strided B and C) twice: the two launches bitwise equal.  Every
+    output bitwise."""
+    from repro_torch.kernels.ssm_scan import run_length
+
+    R = run_length()
     gen = torch.Generator(device="cuda").manual_seed(22)
     n = 0
     for B in (1, 3):
-        for S in (1, 16, 37):
+        for S in (1, R - 1, R, R + 1, 2 * R + 3, 37):
             for di in (8, 37, 100):
                 for state in (4, 8, 16):
                     for dtype in (torch.float32, torch.bfloat16):
@@ -2799,10 +2809,19 @@ def train_step_profile(torch, tr, model, opt, batch, step_ms):
         names[e.name()] = names.get(e.name(), 0.0) + e.duration_ns() / 1e3
     busy = sum(names.values()) / 1e3
     top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+    # K6's kernel, and K6b's three (checkpoints, reverse, reduction)
+    kern = {label: sum(us for n, us in names.items() if re.search(pat, n))
+            / 1e3 for label, pat in (
+                ("K6", r"\bssm_scan_kernel\b"),
+                ("K6b", r"\bssm_scan_(ckpt|bwd|bwd_reduce)_kernel\b"))}
     print(f"LM train profiled step: wall {wall:.1f} ms (profiled), device "
           f"busy {busy:.1f} ms: busy share {busy / wall:.3f} of the "
           f"profiled wall, {busy / step_ms:.3f} of the unprofiled median "
-          f"step ({step_ms:.1f} ms); {len(evs)} device ops; top: "
+          f"step ({step_ms:.1f} ms); {len(evs)} device ops; "
+          + "; ".join(f"{k} {ms:.1f} ms ({ms / busy:.4f} of the busy time, "
+                      f"{ms / step_ms:.4f} of the median step)"
+                      for k, ms in kern.items())
+          + "; top: "
           + "; ".join(f"{n[:48]} {us / 1e3:.1f} ms" for n, us in top),
           flush=True)
 
@@ -2812,13 +2831,18 @@ def k6b_record(torch, kops, ref, args, launches, card_clock_mhz):
     hands them over (bf16 x and dt, B and C strided views of the x_proj
     output, float32 dy): bitwise against the plain version, device ms
     beside the plain version's and the bound (its inputs and outputs);
-    the bound with its own state stack and the exponentials' issue-rate
-    term printed beside it."""
+    the design's bound (its checkpoints, partial sums and recompute) and
+    the exponentials' issue-rate term printed beside it.  A call's scratch
+    (its peak allocation less its outputs) must stay within its
+    checkpoints' and partial sums' closed forms plus 10%, and under
+    0.5 GB."""
+    from repro_torch.kernels.ssm_scan import run_length
     from repro_torch.launch import roofline as rf
 
     x1, dt, Bm, Cm, A, h0, dy, dhT = args
     B, S, di = x1.shape
     state = A.shape[1]
+    R = run_length()
     # the plain version's time from this one call (some 4096 x 45 small
     # ops: host-bound, and seconds a call)
     torch.cuda.synchronize()
@@ -2826,15 +2850,23 @@ def k6b_record(torch, kops, ref, args, launches, card_clock_mhz):
     want = ref.ssm_scan_bwd_ref(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     got = kops.ssm_scan_bwd(*args)
+    torch.cuda.synchronize()
+    scratch = (torch.cuda.max_memory_allocated() - base
+               - sum(t.numel() * t.element_size() for t in got))
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     k6b_same(torch, got, want, "at hymba layer 0's training shape")
     del got, want
     nbytes, ops = rf.ssm_scan_bwd_launch(B, S, di, state, x1.element_size(),
                                          Bm.element_size())
     bms, by = rf.bound_ms(nbytes, ops)
-    stack = rf.ssm_scan_bwd_stack_bytes(B, S, di, state)
-    design_ms, design_by = rf.bound_ms(nbytes + stack, ops)
+    closed = (rf.ssm_scan_bwd_checkpoint_bytes(B, S, di, state, R)
+              + rf.ssm_scan_bwd_partial_bytes(B, S, di, state))
+    design_ms, design_by = rf.bound_ms(*rf.ssm_scan_bwd_design(
+        B, S, di, state, x1.element_size(), Bm.element_size(), R))
     expf_ms = 2 * rf.ssm_scan_expf_ms(B, S, di, state, card_clock_mhz)
     rec = dict(
         name="ssm_scan_bwd", route="cuda",
@@ -2848,11 +2880,16 @@ def k6b_record(torch, kops, ref, args, launches, card_clock_mhz):
         bound_ms=bms, bound_by=by, library_ms=None)
     print(f"K6b shapes: B={B} S={S} di={di} state={state}, {x1.dtype} "
           f"inputs, B strides {Bm.stride()}; {nbytes} bytes, {ops} "
-          f"operations: bound {bms:.4f} ms ({by}); with the state stack "
-          f"({stack} bytes) {design_ms:.4f} ms ({design_by}); expf issue "
+          f"operations: bound {bms:.4f} ms ({by}); the design's (runs of "
+          f"{R}) {design_ms:.4f} ms ({design_by}); expf issue "
           f"{expf_ms:.4f} ms; K6b {rec['ms']:.4f} ms ({rec['ms'] / bms:.1f}x "
-          f"its bound, {rec['ms'] / design_ms:.1f}x with the stack), plain "
-          f"{rec['plain_ms']:.1f} ms, max abs err {err}", flush=True)
+          f"its bound, {rec['ms'] / design_ms:.1f}x the design's), plain "
+          f"{rec['plain_ms']:.1f} ms, max abs err {err}; a call's scratch "
+          f"{scratch} bytes (checkpoints and partial sums {closed})",
+          flush=True)
+    if scratch > 1.1 * closed or scratch >= 0.5e9:
+        fail(f"K6b's scratch {scratch} bytes exceeds its checkpoints and "
+             f"partial sums ({closed} bytes) by more than 10%, or 0.5 GB")
     return rec
 
 
@@ -2887,8 +2924,8 @@ def train_path(np, torch, kops, ref):
     tc = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
                                      total_steps=TRAIN_STEPS), remat=True)
     # written before the run: K6 once a Mamba layer forward and once in its
-    # recompute, K6b once a Mamba layer backward (one call: the scan and
-    # its reduction)
+    # recompute, K6b once a Mamba layer backward (one call: its
+    # checkpoints, reverse scan and reduction)
     want = {"ssm_scan": 2 * cfg.n_layers, "ssm_scan_bwd": cfg.n_layers}
     print(f"LM train: {TRAIN_ARCH} whole, B={TRAIN_B} (the reference's "
           f"batch, 256, cut for the time limit), S={TRAIN_S}, "

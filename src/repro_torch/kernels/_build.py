@@ -50,6 +50,7 @@ SIGNATURES = {
     "repro_ssm_scan_bwd": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],
+    "repro_ssm_scan_bwd_run": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

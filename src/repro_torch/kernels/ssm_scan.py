@@ -6,7 +6,10 @@ on a CUDA device and runs the plain version
 (:func:`repro_torch.kernels.ref.ssm_scan_ref`) when they lie on the CPU.
 :func:`ssm_scan_bwd` is its gradient, K6b (``kernels/csrc/ssm_scan_bwd.cu``,
 plain version :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`), which the
-reference has no kernel for: it differentiates its ``lax.scan``.
+reference has no kernel for: it differentiates its ``lax.scan``.  K6b
+keeps the state only every :func:`run_length` steps and recomputes the
+states between as it walks back, so its scratch is a small part of a
+stack of every state (3.36 GB at hymba-1.5b's training shape).
 :class:`SsmScan` joins the two into an autograd function, which every
 Mamba layer's scan runs through (:func:`repro_torch.models.layers.mamba_scan`),
 serving and training, on both routes.  Each launch adds one to its count
@@ -92,18 +95,32 @@ def ssm_scan(x1, dt, Bm, Cm, A, h0):
     return y, hT
 
 
+def run_length() -> int:
+    """K6b's run length, the steps between two of its checkpoints: the
+    library's (``kRun`` in ``csrc/ssm_scan_bwd.cu``), which builds it on
+    first use."""
+    from repro_torch.kernels._build import library
+
+    return library().repro_ssm_scan_bwd_run()
+
+
 def ssm_scan_bwd(x1, dt, Bm, Cm, A, h0, dy, dhT=None):
     """K6b: the gradient of :func:`ssm_scan`.  Takes its inputs (as
     :func:`ssm_scan` takes them), ``dy [B, S, di]`` and ``dhT [B, di,
     state]`` (None: zeros); returns ``(dx1, ddt, dBm, dCm, dA, dh0)``,
     float32, each in its input's shape.
 
-    On the card one call is two launches (the scan and the fixed-order
-    reduction of its partial sums, counted once as ``ssm_scan_bwd``) and
-    takes a float32 scratch stack of every state, ``[B, S, di, state]``
-    (3.36 GB at hymba-1.5b's training shape), freed on return.  Bitwise
-    equal to :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`, which runs
-    on CPU tensors."""
+    On the card one call is three launches (the checkpoints, the reverse
+    scan and the fixed-order reduction of its partial sums; counted once
+    as ``ssm_scan_bwd``).  Its float32 scratch, freed on return: the
+    state every R = :func:`run_length` steps, ``[B, ceil(S / R) - 1,
+    state, di]`` (the reverse pass recomputes the states between from
+    them), and the partial sums ``[B, S, ceil(di / 32), 2 state]`` and
+    ``[B, di, state]``: 0.42 GB at hymba-1.5b's training shape
+    (``launch/roofline.py`` ``ssm_scan_bwd_checkpoint_bytes``,
+    ``ssm_scan_bwd_partial_bytes``).
+    Bitwise equal to :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`,
+    which runs on CPU tensors."""
     if not on_cuda(x1, dt, Bm, Cm, A, h0, dy, dhT):
         return _ref.ssm_scan_bwd_ref(x1, dt, Bm, Cm, A, h0, dy, dhT)
     from repro_torch.kernels._build import check, library
@@ -123,9 +140,9 @@ def ssm_scan_bwd(x1, dt, Bm, Cm, A, h0, dy, dhT=None):
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=x1.device)
 
-    nw = -(-di // 32)
-    hbuf, part_bc, part_a = (f32(B, S, di, state), f32(B, S, nw, 2 * state),
-                             f32(B, di, state))
+    nw, run = -(-di // 32), run_length()
+    ck, part_bc, part_a = (f32(B, max(0, -(-S // run) - 1), state, di),
+                           f32(B, S, nw, 2 * state), f32(B, di, state))
     dx, ddt, dB, dC = f32(B, S, di), f32(B, S, di), f32(B, S, state), \
         f32(B, S, state)
     dA, dh0 = f32(di, state), f32(B, di, state)
@@ -133,7 +150,7 @@ def ssm_scan_bwd(x1, dt, Bm, Cm, A, h0, dy, dhT=None):
         x1.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
         A.data_ptr(), h0.data_ptr(), dy.data_ptr(), gT.data_ptr(),
-        hbuf.data_ptr(), dx.data_ptr(), ddt.data_ptr(), part_bc.data_ptr(),
+        ck.data_ptr(), dx.data_ptr(), ddt.data_ptr(), part_bc.data_ptr(),
         part_a.data_ptr(), dh0.data_ptr(), dB.data_ptr(), dC.data_ptr(),
         dA.data_ptr(), B, S, di, state, int(io == torch.bfloat16),
         stream()), "ssm_scan_bwd")

@@ -277,11 +277,33 @@ def ssm_scan_bwd_launch(B: int, S: int, di: int, state: int, x_bytes: int,
     return nbytes, 23 * cells + 5 * B * S * di
 
 
-def ssm_scan_bwd_stack_bytes(B: int, S: int, di: int, state: int) -> int:
-    """K6b's own traffic beyond :func:`ssm_scan_bwd_launch`: its float32
-    stack of the states ``h_t``, t < S - 1, written by its forward pass
-    and read by its reverse pass."""
-    return 2 * 4 * B * (S - 1) * di * state
+def ssm_scan_bwd_checkpoint_bytes(B: int, S: int, di: int, state: int,
+                                  run: int) -> int:
+    """The size of K6b's float32 checkpoints: the state before each run of
+    ``run`` steps but the first, ``[B, ceil(S / run) - 1, state, di]``.
+    Its forward pass writes them once and its reverse pass reads them
+    once."""
+    return 4 * B * max(0, -(-S // run) - 1) * di * state
+
+
+def ssm_scan_bwd_partial_bytes(B: int, S: int, di: int, state: int) -> int:
+    """The size of K6b's float32 partial sums: ``dB`` and ``dC`` a block of
+    32 channels and step, ``[B, S, ceil(di / 32), 2 state]``, and ``dA`` a
+    row, ``[B, di, state]``.  Its scan writes them once and its reduction
+    reads them once."""
+    return 4 * (B * S * -(-di // 32) * 2 * state + B * di * state)
+
+
+def ssm_scan_bwd_design(B: int, S: int, di: int, state: int, x_bytes: int,
+                        bc_bytes: int, run: int):
+    """K6b's own design on top of :func:`ssm_scan_bwd_launch`: its
+    checkpoints and partial sums written and read once each, and 28
+    operations a (batch, step, channel, state) cell, the function's 23
+    and the 5 of its second pass of the forward recurrence."""
+    nbytes, _ = ssm_scan_bwd_launch(B, S, di, state, x_bytes, bc_bytes)
+    scratch = (ssm_scan_bwd_checkpoint_bytes(B, S, di, state, run)
+               + ssm_scan_bwd_partial_bytes(B, S, di, state))
+    return nbytes + 2 * scratch, 28 * B * S * di * state + 5 * B * S * di
 
 
 def similarity_mark_launch(args):

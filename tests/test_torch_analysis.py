@@ -550,6 +550,24 @@ def test_ptxas_register_budget_reads_the_launch_bounds():
     assert "130 registers x 128 threads x 4 blocks" in fs[0].message
 
 
+def test_ptxas_register_budget_reads_k6b_template_launch_bounds():
+    """ssm_scan_bwd_kernel<16, bf16> carries __launch_bounds__(kCh * NS /
+    kSpl, 512 / kCh * kSpl / NS) = (256, 2), both read from the source's
+    constants with the state bound: 128 registers fit an SM, 130 do
+    not."""
+    mangled = ("_ZN12_GLOBAL__N_119ssm_scan_bwd_kernelILi16E13__nv_bfloat16"
+               "EEvPKT0_S4_S4_S4_xxxxPKfS6_S6_S6_S6_PfS7_S7_S7_S7_iii")
+    assert cuda_check.demangle(mangled) == \
+        ("ssm_scan_bwd_kernel", (16, None))
+    log = (f"== ssm_scan_bwd.cu\nptxas info    : Compiling entry function "
+           f"'{mangled}' for 'sm_90a'\nptxas info    : Used {{}} registers, "
+           f"456 bytes cmem[0]\n")
+    assert cuda_check.check_ptxas(log.format(128))[0] == []
+    fs = cuda_check.check_ptxas(log.format(130))[0]
+    assert _rules_of(fs) == ["cuda-register-budget"]
+    assert "130 registers x 256 threads x 2 blocks" in fs[0].message
+
+
 def test_shard_layout_validator_matches_the_reference():
     kw = dict(n_pad=9, n_loc=4, n_sh=2, halo=np.array([[4, 99], [0, 1]]),
               idx=np.full((9, 3), 7, np.int32))

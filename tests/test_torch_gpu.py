@@ -16,6 +16,7 @@ import neither ``jax`` nor the JAX package ``repro``, and
 import ast
 import functools
 import os
+import re
 import subprocess
 import sys
 
@@ -31,6 +32,7 @@ from repro_torch.core.graph import mesh2d, star_hub  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import similarity as ksim  # noqa: E402
+from repro_torch.kernels.ssm_scan import run_length  # noqa: E402
 from repro_torch.kernels import vcycle_fused as tvf  # noqa: E402
 from repro_torch.launch import make_mesh  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
@@ -939,7 +941,7 @@ def test_gpu_cuda_check_over_the_built_library(cuda):
             "cheby_smooth_zero_kernel", "cheby_prolong_step_kernel",
             "restrict_residual_any", "restrict_residual_vec",
             "spmv_ell_kernel", "stream_kernel", "rows_kernel",
-            "ssm_scan_kernel", "ssm_scan_bwd_kernel",
+            "ssm_scan_kernel", "ssm_scan_ckpt_kernel", "ssm_scan_bwd_kernel",
             "ssm_scan_bwd_reduce_kernel"} <= names
     assert all(k.registers > 0 for k in kernels)
 
@@ -966,16 +968,30 @@ def _k6b_inputs(gen, cuda, B, S, di, state, dtype, rank=None):
     return x1, dt, Bm, Cm, A, h0, dy, dhT
 
 
+def _steps(S):
+    """S as a test names it: a count of steps, or one about K6b's run
+    length R ("R-1", "2R+3"), which the library gives."""
+    if isinstance(S, int):
+        return S
+    m = re.fullmatch(r"(\d*)R([+-]\d+)?", S)
+    return int(m.group(1) or 1) * run_length() + int(m.group(2) or 0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,di", [(1, 1, 8), (3, 37, 37), (2, 16, 100),
-                                    (1, 5, 300)])
+                                    (1, 5, 300), (2, "R-1", 37),
+                                    (1, "R", 100), (2, "R+1", 45),
+                                    (1, "2R+3", 100)])
 @pytest.mark.parametrize("state", [4, 8, 16])
 def test_gpu_k6b_bitwise_equal_to_plain(cuda, B, S, di, state):
     """K6b against its plain version on the card: every output bitwise,
     the reduced ones (dB, dC over the channels, dA over rows and steps)
     too, since the plain version sums in the kernel's order; float32 and
-    bf16 inputs, nonzero h0 and dhT, odd di, S = 1 and S not a multiple of
-    16; two launches bitwise equal; each launch counted."""
+    bf16 inputs, nonzero h0 and dhT, odd di and di not a multiple of the
+    block's 32 channels, S = 1 and S not a multiple of 16; S about the run
+    length R (a run cut short, one run, a checkpoint read back, two); two
+    launches bitwise equal; each launch counted."""
+    S = _steps(S)
     gen = torch.Generator(device=cuda).manual_seed(B * 100 + S + di + state)
     for dtype in (torch.float32, torch.bfloat16):
         args = _k6b_inputs(gen, cuda, B, S, di, state, dtype)
@@ -1025,6 +1041,31 @@ def test_gpu_k6b_strided_views_and_function(cuda, dtype, rank):
     assert torch.equal(xb.grad[..., rank + 16:], want[3].to(dtype))
     assert not xb.grad[..., :rank].any()
     assert torch.equal(leaves[3].grad, want[4])
+
+
+@pytest.mark.gpu
+def test_gpu_k6b_allocates_checkpoints_not_a_state_stack(cuda):
+    """One K6b call at B = 2, S = 4096, di = 512, state 16 allocates no
+    more than its outputs plus its checkpoints and partial sums (their
+    closed forms in ``launch/roofline.py``) plus 10%: a stack of every
+    state would be 268 MB more."""
+    from repro_torch.launch import roofline as rf
+
+    B, S, di, state = 2, 4096, 512, 16
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    args = _k6b_inputs(gen, cuda, B, S, di, state, torch.bfloat16, rank=32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = kops.ssm_scan_bwd(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    outputs = sum(t.numel() * t.element_size() for t in got)
+    scratch = (rf.ssm_scan_bwd_checkpoint_bytes(B, S, di, state,
+                                                run_length())
+               + rf.ssm_scan_bwd_partial_bytes(B, S, di, state))
+    assert outputs + scratch <= peak <= 1.1 * (outputs + scratch)
+    assert peak < 4 * B * S * di * state
 
 
 @pytest.mark.gpu

@@ -122,6 +122,35 @@ def test_ssm_scan_terms():
     assert roof.bound_ms(1.0, 67e9) == (1.0, "operations")
 
 
+def test_ssm_scan_bwd_design_closed_forms():
+    """K6b at hymba-1.5b's training shape (B = 4, S = 4096, di = 3200,
+    state 16, bf16): its checkpoints, one state a channel every run but
+    the first; its partial sums, 100 blocks of 32 channels a row and step
+    and one dA a row; its design bound, those written and read once each
+    beside 28 operations a cell."""
+    B, S, di, n = 4, 4096, 3200, 16
+    assert roof.ssm_scan_bwd_checkpoint_bytes(B, S, di, n, 16) == \
+        4 * B * 255 * di * n == 208_896_000
+    assert roof.ssm_scan_bwd_checkpoint_bytes(B, S, di, n, 32) == \
+        104_038_400
+    # one run: no checkpoint; one step more: one
+    assert roof.ssm_scan_bwd_checkpoint_bytes(2, 16, 37, 8, 16) == 0
+    assert roof.ssm_scan_bwd_checkpoint_bytes(2, 17, 37, 8, 16) == \
+        4 * 2 * 37 * 8
+    assert roof.ssm_scan_bwd_partial_bytes(B, S, di, n) == \
+        4 * (B * S * 100 * 2 * n + B * di * n) == 210_534_400
+    assert roof.ssm_scan_bwd_partial_bytes(1, 5, 33, 4) == \
+        4 * (5 * 2 * 2 * 4 + 33 * 4)
+    fn_bytes, fn_ops = roof.ssm_scan_bwd_launch(B, S, di, n, 2, 2)
+    assert (fn_bytes, fn_ops) == (844_873_728, 19_555_942_400)
+    nbytes, ops = roof.ssm_scan_bwd_design(B, S, di, n, 2, 2, 16)
+    assert nbytes == fn_bytes + 2 * (208_896_000 + 210_534_400)
+    assert ops == 28 * B * S * di * n + 5 * B * S * di == 23_750_246_400
+    assert roof.bound_ms(fn_bytes, fn_ops)[1] == "operations"
+    ms, by = roof.bound_ms(nbytes, ops)
+    assert by == "bytes" and round(ms, 4) == 0.5026
+
+
 def test_similarity_mark_launch_counts_by_hand():
     """Two subtasks: 0 (rows 0-2) with one recovered candidate of beta 1,
     1 (rows 3-4) with one unrecovered candidate; c1 = 3."""

@@ -113,8 +113,9 @@ def main() -> int:
                                              x1.element_size(),
                                              Bm.element_size())
         bms, by = rf.bound_ms(nbytes, ops)
-        stack = rf.ssm_scan_bwd_stack_bytes(B, S, di, state)
-        dms, _ = rf.bound_ms(nbytes + stack, ops)
+        dms, dby = rf.bound_ms(*rf.ssm_scan_bwd_design(
+            B, S, di, state, x1.element_size(), Bm.element_size(),
+            kssm.run_length()))
         got = kops.ssm_scan_bwd(*a)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
         start.record()
@@ -125,8 +126,9 @@ def main() -> int:
         k_ms = start.elapsed_time(end) / 3
         line = (f"K6b at layer 0: B={B} S={S} di={di} state={state} "
                 f"{x1.dtype}, B strides {tuple(Bm.stride())}: {k_ms:.3f} ms; "
-                f"bound {bms:.4f} ms ({by}), with the state stack "
-                f"{dms:.4f} ms")
+                f"bound {bms:.4f} ms ({by}), the design's (its "
+                f"checkpoints, partial sums and recompute) {dms:.4f} ms "
+                f"({dby})")
         if args.plain:
             t0 = time.perf_counter()
             want = ref.ssm_scan_bwd_ref(*a)
