@@ -53,7 +53,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      cold flush (one group, cache ``miss``, every column's f64 relres <=
      tol), a warm flush (``mem``), a restarted service on the same disk
      tier (``disk``), all bitwise equal; then a ``matvec_impl="kernel"``
-     service (K5) on one 2-column request, bitwise equal to the fused one;
+     service (K5) on one 1-column request, bitwise equal to the fused one;
   6b. two builds at once on one service: mesh2d(512, 512, seed=0) and
      mesh2d(384, 384, seed=1) built serially with the service's settings,
      then both again from two threads, a ``SolverDaemon``'s ``miss``
@@ -63,11 +63,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   6c. the daemon at full width: a service over the main graph set up from
      phase 6's disk tier (``disk``), ``SolverDaemon(max_batch_delay_ms=25,
      max_batch_columns=8)`` with tenants "paid" (weight 4) and "free",
-     ``replay_daemon`` of ``make_schedule(16, 8.0, seed=7)`` at tol 1e-3,
-     then ``replay_sync`` of its first 8: every request resolved, fewer
-     flush cycles than requests, the 8 shared requests with the same
-     iterations in both modes and x within 1e-3 (re-based); both replay
-     records printed;
+     ``replay_daemon`` of ``make_schedule(8, 8.0, seed=7)`` at tol 1e-3,
+     then ``replay_sync`` of its first 4 (16 and 8 until the time limit
+     cut them): every request resolved, fewer flush cycles than requests,
+     the 4 shared requests with the same iterations in both modes and x
+     within 1e-3 (re-based); both replay records printed;
   6d. the spectral services and score stages against scipy's f64
      oracles: ``effective_resistance`` through a daemon on the main graph
      (4 graph edges and 4 far pairs at tol 1e-3: positive, an edge's at
@@ -76,15 +76,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (eigenvalue rtol 1e-3, |cos| >= 1 - 1e-3, residual <= 1e-3),
      ``harmonic_interpolate`` on mesh2d(256, 256) with 1% boundary
      vertices against ``spsolve`` (max error 1e-6), the ``er_exact``
-     pipeline on mesh2d(64, 64) against sparse LU of the grounded
+     pipeline on mesh2d(32, 32) against sparse LU of the grounded
      Laplacian (rtol 1e-3), and ``er_sample`` on mesh2d(128, 128): its
      noise bits on the card equal to the CPU's, the recovered masks
      equal;
   6e. the distributed planes over ``make_mesh((8,), ("data",))``, every
-     shard on the card: (a) ``recover_mixed`` on phase 5's level-0
-     problem bitwise equal to ``recover_rounds(stop_at_target=False)``,
+     shard on the card: (a) ``recover_mixed`` on mesh2d(512, 512)'s
+     level-0 problem (a quarter of the main graph, cut for the time
+     limit) bitwise equal to ``recover_rounds(stop_at_target=False)``,
      K4's launches equal to the rounds summed over the shards; (b) the
-     same on ``star_hub(100000, extra=100000, seed=5)``, whose hub subtask
+     same on ``star_hub(25000, extra=25000, seed=5)``, whose hub subtask
      is a giant that the inner engine takes (its rounds and
      ``dist.collective_bytes`` printed); (c) ``build_hierarchy(
      contraction="sharded")`` of the main graph against phase 3's device
@@ -94,15 +95,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      matvec_impl="fused")`` on phase 3's hierarchy and right-hand sides:
      8 of 8 columns at true relres <= 1e-3, iterations beside phase 3's,
      K1 launches a solve, a ``torch.profiler`` trip profile; (e) on
-     mesh2d(256, 256) the sharded ``"fused"`` and ``"ref"`` solves with
+     mesh2d(128, 128) the sharded ``"fused"`` and ``"ref"`` solves with
      +-0 iterations and x bitwise, a lone column equal to its column in
-     the batch; (f) ``SolverService(mesh=...)`` on mesh2d(256, 256): a
+     the batch; (f) ``SolverService(mesh=...)`` on mesh2d(128, 128): a
      ``miss``, a ``mem`` hit, the descriptor ``("mesh", "data", 8)``, a key
      apart from a single-device service's;
   7. the LM serving path: falcon-mamba-7b at full width (64 layers,
      7,006,326,784 random parameters from ``torch.Generator("cuda")``
      seed 0), ``repro_torch.serve.Engine(batch=4)`` answering 4 greedy
-     requests of 2048, 1536, 1024 and 512 prompt tokens, 32 new tokens
+     requests of 2048, 1536, 1024 and 512 prompt tokens, 16 new tokens
      each: prefill ms, decode ms a step, tokens/s, peak memory and K6
      launches (64, one a layer); finite logits, ids in range, a second
      generate with the same ids; a 64-token prompt's prefill logits (K6)
@@ -152,11 +153,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (c) hymba-1.5b's first 2 layers at full width, one batch of B = 1,
      S = 512: loss, every gradient (relative norm) and the parameters
      after one ``make_train_step``, card (K6, K6b) against CPU within
-     2e-2 * sqrt(d_model / 64); (d) hymba-1.5b whole (32 layers,
-     1,611,368,000 parameters, seed 0) trained by ``ResilientTrainer.run``
+     2e-2 * sqrt(d_model / 64); (d) hymba-1.5b at full width on 8 of
+     its 32 layers (441,550,400 parameters, seed 0; cut for the time
+     limit, phase 10 trains it whole) trained by ``ResilientTrainer.run``
      for 8 steps of B = 4 (the reference's 256, cut for the time limit),
      S = 4096 (AdamW lr 1e-4, warmup 2, ``remat``): losses finite and the
-     last three's mean below the first three's, K6 64 and K6b 32 launches
+     last three's mean below the first three's, K6 16 and K6b 8 launches
      a step; each loss, the median step ms of steps 2-8, tokens/s, peak
      memory, then one more step under ``torch.profiler`` (busy share,
      K6's and K6b's device ms and share of the step);
@@ -177,8 +179,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      rounds bitwise equal at 8, 256 and 512 shards, a round's collective
      bytes and a shard's argument bytes equal to their closed forms, K4
      once a round on every shard; ``recover_inner`` to the end over the
-     256 shards on mesh2d(128, 128)'s off-tree rows as one subtask,
-     bitwise equal to ``recover_serial``;
+     256 shards on mesh2d(64, 64)'s off-tree rows as one subtask (cut
+     from mesh2d(128, 128) for the time limit), bitwise equal to
+     ``recover_serial``;
   8. each kernel timed at its path's shapes beside its plain version,
      its byte/operation bound and, for K1 and K5, ``torch.sparse.mm`` on a
      CSR copy of the operator; K2 and K3 also at every level's shapes
@@ -206,6 +209,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      width (8 columns, tol 0, 16 and 32 trips: aten ops and host
      transfers a trip; 5 against 7 columns for the structure rule); any
      error finding fails the run.
+  10. the LM dry run (``repro_torch.launch.dryrun``) of hymba-1.5b: its
+     four shapes counted on ``meta`` (train_4k, prefill_32k, decode_32k,
+     long_500k; one count a shape) on both production meshes, 8 rows with
+     the skip set of the reference's rule (none: hymba has an SSM path);
+     then the four cells run on the card at full width, the batch cut to
+     one card (train_4k B = 4, prefill_32k B = 1 on 8 of the 32 layers,
+     cut for the time limit, decode_32k B = 8 over zero caches of 32768,
+     long_500k B = 1 over caches of 524,288):
+     train_4k and the decodes timed over calls after a first, prefill_32k
+     once (its first call is its time); each card record's ``step_ms``
+     beside ``bound_ms`` (the counter's ``max(t_compute, t_memory)`` at
+     the cut shape on ``meta``), its peak memory, and K6's and K6b's
+     launches of one call, which must equal the counter's calls of the
+     two at that shape (train_4k: K6 64, K6b 32; prefill_32k: K6 8).
+     Every row is printed on its own line; a ``FAILED`` row, a value that
+     is not finite or a loss or logits that are not fails the run.
 
 Each path's launch counts are set to 0 just before it and read just after:
 K1-K4 over phase 3 (the ``kernels`` record gives K4's main-path launches;
@@ -217,7 +236,7 @@ K4 over phase 6f's rounds (its record's ``"dryrun"``), K6 over phase 7's
 first ``generate`` and over each phase 7b model's; phase 7c's models run
 no kernel (every count read after each ``generate`` must be 0); K6 and
 K6b over phase 7d's 8-step run (K6b's record; K6's record's
-``"training"``).
+``"training"``), K6 and K6b over each phase 10 card cell's first call.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -245,7 +264,12 @@ SLEEP_CYCLES_PER_S = 2e9      # at most the H100's SM clock, so sleeps run long
 MAIN_ROWS = 1024
 TOL, MAXITER, K = 1e-3, 2000, 8
 SHARDS = 8                    # phase 6e's mesh, one card
-STAR = (100_000, 100_000)     # phase 6e (b): star_hub(n, extra)
+STAR = (25_000, 25_000)       # phase 6e (b): star_hub(n, extra)
+OUTER_ROWS = 512              # phase 6e (a): mesh2d(512, 512)'s problem
+SHARD_ROWS = 128              # phase 6e (e), (f): mesh2d(128, 128)
+END_ROWS = 64                 # phase 6f: the run to the end, mesh2d(64, 64)
+EXACT_ROWS = 32               # phase 6d: er_exact on mesh2d(32, 32)
+REPLAY_N, SYNC_N = 8, 4       # phase 6c: requests replayed, daemon and sync
 CFG_KW = dict(alpha=0.05, chunk=512)   # the main path's pdGRASS config
 
 
@@ -562,8 +586,7 @@ def k4_path(np, torch, g, kops):
     """The K4 path: the round engine's kernel route against its chunked
     route at full size, and exhaustively (no target) on mesh2d(128, 128)
     against the chunked route and the serial oracle.  Returns every K4
-    launch's inputs of the full-size kernel run, and the level-0
-    ``Prepared`` (phase 6e recovers it over a mesh)."""
+    launch's inputs of the full-size kernel run."""
     from repro_torch.core import recovery as rec
     from repro_torch.core.graph import mesh2d
     from repro_torch.pipeline import Pipeline, pdgrass_config
@@ -635,7 +658,7 @@ def k4_path(np, torch, g, kops):
             and np.array_equal(s_k.cpu().numpy(), s_s)):
         fail("mesh2d(128, 128): the K4 route, the chunked route and "
              "recover_serial disagree")
-    return launches_args, prep
+    return launches_args
 
 
 def service_path(np, torch, g, b, kops, disk):
@@ -701,10 +724,10 @@ def service_path(np, torch, g, b, kops, disk):
           flush=True)
     del restart
 
-    # the K5 route: one 2-column request, against the fused service
+    # the K5 route: one 1-column request, against the fused service
     kern = SolverService(pipeline=cfg, coarse_n=64, matvec_impl="kernel",
                          store=svc.store)
-    req = dict(graph=h, b=b[:, :2], tol=TOL, maxiter=MAXITER)
+    req = dict(graph=h, b=b[:, :1], tol=TOL, maxiter=MAXITER)
     kern.warmup(h)                       # the build is not the K5 path
     kops.reset_launches()
     t0 = time.perf_counter()
@@ -804,8 +827,9 @@ class _Recording:
 def daemon_path(np, torch, g, disk, kops):
     """The daemon at full width: a service over the main graph set up from
     the disk tier of phase 6, a ``SolverDaemon`` with two weighted tenants
-    replaying 16 single-column requests at 8 Hz, then the synchronous path
-    on the schedule's first 8.  Returns the service and its handle."""
+    replaying ``REPLAY_N`` single-column requests at 8 Hz, then the
+    synchronous path on the schedule's first ``SYNC_N``.  Returns the
+    service and its handle."""
     from repro_torch.pipeline import pdgrass_config
     from repro_torch.serve import (SolverDaemon, TenantConfig,
                                    make_schedule, replay_daemon, replay_sync)
@@ -820,7 +844,7 @@ def daemon_path(np, torch, g, disk, kops):
     setup_s = time.perf_counter() - t0
     if source != "disk":
         fail(f"daemon path: setup came from {source!r}, want the disk tier")
-    schedule = make_schedule(n_requests=16, rate_hz=8.0, seed=7,
+    schedule = make_schedule(n_requests=REPLAY_N, rate_hz=8.0, seed=7,
                              tenants=(("paid", 4.0), ("free", 1.0)), width=1)
     daemon = SolverDaemon(svc, max_batch_delay_ms=25, max_batch_columns=8,
                           tenants={"paid": TenantConfig(weight=4.0),
@@ -833,7 +857,8 @@ def daemon_path(np, torch, g, disk, kops):
     counts = kops.launch_counts()
     stats = daemon.stats()["daemon"]
     on_sync = _Recording(svc)
-    rep_s = replay_sync(on_sync, h, schedule[:8], tol=TOL, maxiter=MAXITER)
+    rep_s = replay_sync(on_sync, h, schedule[:SYNC_N], tol=TOL,
+                        maxiter=MAXITER)
     rows = {"daemon": rep_d.to_record(), "sync": rep_s.to_record()}
     for mode, row in rows.items():
         row.update(device=torch.cuda.get_device_name(0))
@@ -841,12 +866,14 @@ def daemon_path(np, torch, g, disk, kops):
     print(f"daemon: setup {setup_s:.3f} s from {source}; {stats['cycles']} "
           f"flush cycles, triggers {json.dumps(stats['triggers'])}; launches "
           f"over the replay {json.dumps(counts)}", flush=True)
-    for mode, rep, n in (("daemon", rep_d, 16), ("sync", rep_s, 8)):
+    for mode, rep, n in (("daemon", rep_d, REPLAY_N), ("sync", rep_s,
+                                                        SYNC_N)):
         if rep.errors or len(rep.latencies_ms) != n:
             fail(f"replay {mode}: {rep.errors} errors, "
                  f"{len(rep.latencies_ms)} of {n} requests resolved")
-    if not stats["cycles"] < 16:
-        fail(f"the daemon ran {stats['cycles']} cycles for 16 requests")
+    if not stats["cycles"] < REPLAY_N:
+        fail(f"the daemon ran {stats['cycles']} cycles for {REPLAY_N} "
+             f"requests")
     for name in ("spmv_ell_batched", "cheby_smooth_zero",
                  "restrict_residual"):
         if counts[name] <= 0:
@@ -866,7 +893,8 @@ def daemon_path(np, torch, g, disk, kops):
             fail(f"replay request {i}: x parts between the modes by "
                  f"{np.abs(xd - xs).max():.3e}")
         bitwise &= np.array_equal(rd.x, rs.x)
-    print(f"daemon vs sync on the 8 shared requests: same iterations, x "
+    print(f"daemon vs sync on the {SYNC_N} shared requests: same "
+          f"iterations, x "
           f"bitwise equal: {bitwise}", flush=True)
     return svc, h
 
@@ -973,24 +1001,24 @@ def spectral_path(np, torch, g, svc, h, kops):
         fail(f"harmonic interpolation: max err {err:.3e} > 1e-6, or not "
              f"converged, or K1 not launched")
 
-    # the er_exact score stage on mesh2d(64, 64) against sparse LU
-    g64 = mesh2d(64, 64, seed=0)
+    # the er_exact score stage on mesh2d(32, 32) against sparse LU
+    g_ex = mesh2d(EXACT_ROWS, EXACT_ROWS, seed=0)
     cfg = pdgrass_config(alpha=0.1, score_mode="er_exact")
     kops.reset_launches()
     t0 = time.perf_counter()
-    prep = Pipeline(cfg).prepare(g64, device="cuda")
-    sparsifier = Pipeline(cfg).run(g64, prepared=prep, device="cuda")
+    prep = Pipeline(cfg).prepare(g_ex, device="cuda")
+    sparsifier = Pipeline(cfg).run(g_ex, prepared=prep, device="cuda")
     torch.cuda.synchronize()
     exact_s = time.perf_counter() - t0
     m_off = prep.m_off
     off = prep.off_edge_id
     r_card = (prep.problem.score[:m_off].double().cpu().numpy()
-              / g64.weight[off].astype(np.float32).astype(np.float64))
-    lu = sla.splu(laplacian(g64)[1:, 1:].tocsc())   # grounded at vertex 0
-    u, v = g64.src[off], g64.dst[off]
+              / g_ex.weight[off].astype(np.float32).astype(np.float64))
+    lu = sla.splu(laplacian(g_ex)[1:, 1:].tocsc())   # grounded at vertex 0
+    u, v = g_ex.src[off], g_ex.dst[off]
     r_lu = np.empty(m_off)
     for lo in range(0, m_off, 1024):
-        B = np.zeros((g64.n, min(1024, m_off - lo)))
+        B = np.zeros((g_ex.n, min(1024, m_off - lo)))
         cols = np.arange(B.shape[1])
         B[u[lo:lo + 1024], cols] += 1.0
         B[v[lo:lo + 1024], cols] -= 1.0
@@ -998,7 +1026,8 @@ def spectral_path(np, torch, g, svc, h, kops):
         r_lu[lo:lo + 1024] = X[u[lo:lo + 1024], cols] - X[v[lo:lo + 1024],
                                                           cols]
     rel = float(np.max(np.abs(r_card - r_lu) / r_lu))
-    print(f"er_exact, mesh2d(64, 64): {exact_s:.3f} s for prepare and run, "
+    print(f"er_exact, mesh2d({EXACT_ROWS}, {EXACT_ROWS}): {exact_s:.3f} s "
+          f"for prepare and run, "
           f"{m_off} off-tree resistances, max rel err against sparse LU "
           f"{rel:.3e}; recovered {sparsifier.stats['n_recovered']}; "
           f"launches {json.dumps(kops.launch_counts())}", flush=True)
@@ -1078,13 +1107,13 @@ def same_graph(np, a, b) -> bool:
 
 
 def distributed_path(np, torch, g, hier, coarse_dev, idx, val, b_dev,
-                     iters_single, prep0, kops, rec, hier_mod):
+                     iters_single, kops, rec, hier_mod):
     """Phase 6e, the distributed planes over an 8-shard mesh on the card:
-    (a) the outer engine on the level-0 problem, (b) the inner engine on a
-    star hub's giant subtask, (c) the sharded contraction, (d) the sharded
-    solve at full width, (e) fused against plain, (f) the service over the
-    mesh.  Returns (K1 launches of (d)'s solve, K4 launches of (a) and
-    (b))."""
+    (a) the outer engine on mesh2d(``OUTER_ROWS``, ``OUTER_ROWS``)'s
+    level-0 problem, (b) the inner engine on a star hub's giant subtask,
+    (c) the sharded contraction, (d) the sharded solve at full width, (e)
+    fused against plain, (f) the service over the mesh.  Returns (K1
+    launches of (d)'s solve, K4 launches of (a) and (b))."""
     from repro_torch.core.graph import mesh2d, star_hub
     from repro_torch.launch import make_mesh
     from repro_torch.obs import get_tracer
@@ -1094,14 +1123,20 @@ def distributed_path(np, torch, g, hier, coarse_dev, idx, val, b_dev,
 
     mesh = make_mesh((SHARDS,), ("data",), device="cuda")
 
-    # (a) the outer engine at full size
-    k4_a, _, _, _ = recovery_engines(torch, prep0, mesh, rec, kops,
-                                     "(a) level-0 problem")
+    # (a) the outer engine on a quarter of the main graph (a fourth of its
+    # rounds: the main graph's problem takes 14,400 rounds each way)
+    cfg = pdgrass_config(**CFG_KW)
+    outer = mesh2d(OUTER_ROWS, OUTER_ROWS, seed=0)
+    prep = Pipeline(cfg).prepare(outer, device="cuda")
+    k4_a, _, _, _ = recovery_engines(
+        torch, prep, mesh, rec, kops,
+        f"(a) mesh2d({OUTER_ROWS}, {OUTER_ROWS})'s level-0 problem")
+    del prep
 
     # (b) the inner engine: one giant subtask holds the star's extra edges
     t0 = time.perf_counter()
     star = star_hub(*STAR, seed=5)
-    prep = Pipeline(pdgrass_config(**CFG_KW)).prepare(star, device="cuda")
+    prep = Pipeline(cfg).prepare(star, device="cuda")
     print(f"(b) star_hub({STAR[0]}, extra={STAR[1]}, seed=5): n={star.n} "
           f"m={star.m}, prepared in {time.perf_counter() - t0:.3f} s",
           flush=True)
@@ -1181,8 +1216,8 @@ def distributed_path(np, torch, g, hier, coarse_dev, idx, val, b_dev,
     trip_profile(torch, solver, b_dev, trips=10, label="(d) sharded solve")
     del solver, res
 
-    # (e) fused against plain on mesh2d(256, 256): +-0, x bitwise
-    small = mesh2d(256, 256, seed=0)
+    # (e) fused against plain on mesh2d(128, 128): +-0, x bitwise
+    small = mesh2d(SHARD_ROWS, SHARD_ROWS, seed=0)
     h_small = build_hierarchy(small, alpha=0.05, chunk=512, device="cuda")
     s_idx, s_val = ell_laplacian(small, device="cuda")
     bs = torch.as_tensor(np.random.default_rng(2).standard_normal(
@@ -1194,7 +1229,7 @@ def distributed_path(np, torch, g, hier, coarse_dev, idx, val, b_dev,
         t0 = time.perf_counter()
         out[impl] = solve(bs, tol=TOL, maxiter=MAXITER)
         torch.cuda.synchronize()
-        print(f"(e) mesh2d(256, 256), {impl}: "
+        print(f"(e) mesh2d({SHARD_ROWS}, {SHARD_ROWS}), {impl}: "
               f"{(time.perf_counter() - t0) * 1e3:.2f} ms, iters "
               f"{out[impl].iters.tolist()}", flush=True)
     lone = solve(bs[:, 2:3].contiguous(), tol=TOL, maxiter=MAXITER)
@@ -1208,8 +1243,7 @@ def distributed_path(np, torch, g, hier, coarse_dev, idx, val, b_dev,
           "equals its column in the batch", flush=True)
 
     # (f) the service over the mesh: a miss, then a mem hit
-    svc = SolverService(pipeline=pdgrass_config(**CFG_KW), mesh=mesh,
-                        device="cuda")
+    svc = SolverService(pipeline=cfg, mesh=mesh, device="cuda")
     h = svc.register(small)
     key_single = SolverService(pipeline=svc.pipeline, device="cuda")._key(
         h, svc.pipeline)
@@ -1221,7 +1255,8 @@ def distributed_path(np, torch, g, hier, coarse_dev, idx, val, b_dev,
     r2 = svc.solve(h, b2, tol=TOL, maxiter=MAXITER)
     warm_s = time.perf_counter() - t0
     desc = svc.stats()["mesh"]["descriptor"]
-    print(f"(f) service over the mesh, mesh2d(256, 256): {r1.cache} "
+    print(f"(f) service over the mesh, mesh2d({SHARD_ROWS}, {SHARD_ROWS}): "
+          f"{r1.cache} "
           f"{cold_s:.3f} s, {r2.cache} {warm_s:.3f} s, iters "
           f"{[int(i) for i in r2.iters]}, descriptor {desc}", flush=True)
     if (r1.cache, r2.cache) != ("miss", "mem") or not r2.converged:
@@ -1245,8 +1280,9 @@ def dryrun_path(np, torch, kops, ref, rec):
     round's block is picked by global rank, whatever the shard count), a
     round's collective bytes and a shard's argument bytes equal to their
     closed forms, K4 launched once a round on every shard; then
-    ``recover_inner`` to the end on mesh2d(128, 128)'s off-tree rows as one
-    subtask over the 256 shards, bitwise equal to ``recover_serial``.
+    ``recover_inner`` to the end on mesh2d(``END_ROWS``, ``END_ROWS``)'s
+    off-tree rows as one subtask over the 256 shards, bitwise equal to
+    ``recover_serial``.
     K4 at the dry run's shape: the 256-shard run's first launch of its
     second round (shard 0, 131,072 rows) held bitwise against the plain
     version and timed beside it and its bound.  Returns K4's record of the
@@ -1318,7 +1354,7 @@ def dryrun_path(np, torch, kops, ref, rec):
     del rows, out, st
     torch.cuda.empty_cache()
 
-    g = mesh2d(128, 128, seed=0)
+    g = mesh2d(END_ROWS, END_ROWS, seed=0)
     m_off = g.m - (g.n - 1)
     small = dry.production_rows(
         dataclasses.replace(cfg, m_offtree=-(-m_off // 256) * 256), g,
@@ -1332,7 +1368,8 @@ def dryrun_path(np, torch, kops, ref, rec):
     want = rec.recover_serial(rec.RecoveryProblem(
         *small[:4], torch.zeros(small.seg.shape, device="cuda")))
     serial_s = time.perf_counter() - t0
-    print(f"recover_inner to the end on mesh2d(128, 128)'s {small.m_edges} "
+    print(f"recover_inner to the end on mesh2d({END_ROWS}, {END_ROWS})'s "
+          f"{small.m_edges} "
           f"off-tree rows, one subtask over 256 shards: {rounds} rounds, "
           f"{inner_s:.3f} s; recover_serial {serial_s:.3f} s; recovered "
           f"{int((st == rec.STATUS_RECOVERED).sum())}", flush=True)
@@ -1340,7 +1377,8 @@ def dryrun_path(np, torch, kops, ref, rec):
         fail("recover_inner over 256 shards differs from recover_serial")
     total = kops.launch_counts()["similarity_mark"]
     print(f"phase 6f K4 launches: {total} ({launches} in the 2^25-row "
-          f"rounds, {total - launches} to the end on mesh2d(128, 128))",
+          f"rounds, {total - launches} to the end on mesh2d({END_ROWS}, "
+          f"{END_ROWS}))",
           flush=True)
     if total - launches != 256 * rounds:
         fail(f"recover_inner launched K4 {total - launches} times over "
@@ -1942,7 +1980,9 @@ def k6_edge_checks(torch, kops, ref):
     return n
 
 
-LM_LENS, LM_NEW = (2048, 1536, 1024, 512), 32   # the serving requests
+# the serving requests (16 new tokens each: 32 until the time limit cut
+# them)
+LM_LENS, LM_NEW = (2048, 1536, 1024, 512), 16
 LM_BF16 = dict(rtol=2e-2, atol=2e-2)   # the reference test's bar (2 layers)
 LM_F32 = dict(rtol=1e-4, atol=1e-4)    # float32 compute at full depth
 
@@ -2128,8 +2168,9 @@ def lm_path(np, torch, kops):
     """The LM serving path at full width: falcon-mamba-7b, all 64 layers,
     random weights from a seed, ``Engine(batch=4)`` answering 4 greedy
     requests of 2048, 1536, 1024 and 512 prompt tokens (left-padded to
-    S = 2048), 32 new tokens each, twice.  Returns the K6 launch count of
-    the first run and the inputs of its first K6 launch (layer 0)."""
+    S = 2048), ``LM_NEW`` new tokens each, twice.  Returns the K6 launch
+    count of the first run and the inputs of its first K6 launch (layer
+    0)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as mm
     from repro_torch.serve import Engine
@@ -2569,15 +2610,16 @@ def family_lm_path(np, torch, kops):
               flush=True)
 
 
-# phase 7d: hymba-1.5b trained whole, B = 4 (cut from the reference's 256
-# for the time limit), S = 4096 (its train_4k sequence), 8 steps.  lr
-# 1e-4: at 1e-3 the losses of 8 steps do not fall (10.6964 to 10.6820,
-# the last three's mean 6e-4 below the first three's), at 3e-4 the last
-# three's mean lies above the first three's, at 1e-4 0.28 below
-# (tools/train_probe.py --steps 8 --lr ..., H100 80GB HBM3; PERF.md §6):
-# Adam moves every weight by about lr a step, and the output projections
-# start at 0.02 / sqrt(2 x 32) = 0.0025
-TRAIN_ARCH, TRAIN_PARAMS = "hymba-1.5b", 1_611_368_000
+# phase 7d: hymba-1.5b at full width on 8 of its 32 layers (cut for the
+# time limit, from 16: phase 10's train_4k cell trains it whole), B = 4 (cut from
+# the reference's 256), S = 4096 (its train_4k sequence), 8 steps.  lr
+# 1e-4: at 1e-3 the losses of 8 steps of the whole model do not fall
+# (10.6964 to 10.6820, the last three's mean 6e-4 below the first
+# three's), at 3e-4 the last three's mean lies above the first three's,
+# at 1e-4 0.28 below (tools/train_probe.py --steps 8 --lr ..., H100 80GB
+# HBM3; PERF.md §6): Adam moves every weight by about lr a step, and the
+# output projections start at 0.02 / sqrt(2 x 32) = 0.0025
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_PARAMS = "hymba-1.5b", 8, 441_550_400
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 4096, 8, 1e-4
 # (c) card against CPU: 2 layers, one batch of B = 1, S = 512
 CVC_B, CVC_S = 1, 512
@@ -2895,10 +2937,10 @@ def k6b_record(torch, kops, ref, args, launches, card_clock_mhz):
 
 def train_path(np, torch, kops, ref):
     """Phase 7d, LM training: (a) K6b's edge checks; (c) hymba-1.5b's
-    first 2 layers card against CPU; (d) hymba-1.5b whole (32 layers,
-    1,611,368,000 parameters, random weights from seed 0) trained by
+    first 2 layers card against CPU; (d) hymba-1.5b on 8 of its 32
+    layers (441,550,400 parameters, random weights from seed 0) trained by
     ``ResilientTrainer.run`` for 8 steps of B = 4, S = 4096 (AdamW lr 1e-4,
-    warmup 2, ``remat``), K6 64 and K6b 32 times a step, losses finite and
+    warmup 2, ``remat``), K6 16 and K6b 8 times a step, losses finite and
     falling, then one step under the profiler; (b) K6b at layer 0's
     inputs; (e) the 2-layer crash and restart, bitwise.  Returns K6b's
     record and K6's and K6b's launches over (d)."""
@@ -2920,14 +2962,15 @@ def train_path(np, torch, kops, ref):
           f"bitwise equal", flush=True)
     part_done("a_edge_checks")
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     tc = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
                                      total_steps=TRAIN_STEPS), remat=True)
     # written before the run: K6 once a Mamba layer forward and once in its
     # recompute, K6b once a Mamba layer backward (one call: its
     # checkpoints, reverse scan and reduction)
     want = {"ssm_scan": 2 * cfg.n_layers, "ssm_scan_bwd": cfg.n_layers}
-    print(f"LM train: {TRAIN_ARCH} whole, B={TRAIN_B} (the reference's "
+    print(f"LM train: {TRAIN_ARCH} on {TRAIN_LAYERS} of its 32 layers (phase "
+          f"10 trains it whole), B={TRAIN_B} (the reference's "
           f"batch, 256, cut for the time limit), S={TRAIN_S}, "
           f"{TRAIN_STEPS} steps; K6 and K6b launches a step expected: "
           f"{want}", flush=True)
@@ -3054,6 +3097,82 @@ def k6_record(torch, kops, ref, args, launches, card_clock_mhz):
           f"on the path's inputs, {f32_ms:.4f} ms on them cast to float32 "
           f"(max abs err {errs[1]})", flush=True)
     return rec
+
+
+# phase 10: the LM dry run's arch, and each card cell's timed calls after
+# its first (prefill_32k runs once: its blockwise attention computes every
+# tile, masked or not, so one call at B = 1, S = 32768 takes seconds)
+DRY_ARCH = "hymba-1.5b"
+# (shape, timed calls, layers): prefill_32k runs on 8 of hymba's 32 layers
+# (kinds 0, 1, 1, 1, 0, 1, 1, 0; cut for the time limit: its blockwise
+# attention computes every tile, 45.1 s a call at 32 layers)
+DRY_CARD = (("train_4k", 2, None), ("prefill_32k", 0, 8),
+            ("decode_32k", 5, None), ("long_500k", 5, None))
+DRY_SKIPS = set()   # the reference's rule: long_500k runs on an SSM path
+
+
+def lm_dryrun_path(torch):
+    """Phase 10: hymba-1.5b's dry-run rows, 4 shapes x 2 meshes counted on
+    ``meta``, then its four cells on the card (:data:`DRY_CARD`).  Returns
+    the card records' K6 and K6b launches summed."""
+    import math
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.shapes import SHAPES
+
+    cache, rows = {}, []
+    meshes = {name: make_production_mesh(multi_pod=multi, device="meta")
+              for name, multi in (("16x16", False), ("2x16x16", True))}
+    for name, mesh in meshes.items():
+        for shape in SHAPES:
+            t0 = time.perf_counter()
+            row = dryrun.run_cell(DRY_ARCH, shape, mesh, name, cache=cache,
+                                  verbose=False)
+            print(f"dryrun row ({time.perf_counter() - t0:.2f} s): "
+                  f"{json.dumps(row)}", flush=True)
+            rows.append(row)
+    skips = {r["shape"] for r in rows if r["status"] == "skipped"}
+    if skips != DRY_SKIPS:
+        fail(f"dry run skipped {skips}, the reference's rule {DRY_SKIPS}")
+    launched = {"ssm_scan": 0, "ssm_scan_bwd": 0}
+    for shape, calls, layers in DRY_CARD:
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(DRY_ARCH, shape, meshes["16x16"], "16x16",
+                              cache=cache, verbose=False, device="cuda",
+                              run_calls=calls, run_layers=layers)
+        torch.cuda.empty_cache()
+        rec = row["card"]
+        print(f"dryrun card {shape} ({time.perf_counter() - t0:.2f} s): "
+              f"step_ms {rec['step_ms']:.3f} beside bound_ms "
+              f"{rec['bound_ms']:.3f} ({rec['bound_by']}; "
+              f"{rec['step_over_bound']:.3f}x), first call "
+              f"{rec['compile_s']:.3f} s, peak {rec['peak_bytes']} bytes, "
+              f"launches {rec['launches']} counted {rec['counted']}, "
+              f"reduced {rec['reduced']}", flush=True)
+        print(f"dryrun row: {json.dumps(row)}", flush=True)
+        if rec["launches"] != rec["counted"]:
+            fail(f"{shape} on the card launched {rec['launches']}, the "
+                 f"counter counts {rec['counted']}")
+        if not rec["finite"]:
+            fail(f"{shape} on the card: the loss or logits are not finite")
+        for k in launched:
+            launched[k] += rec["launches"][k]
+        rows.append(row)
+    for r in rows:
+        if r["status"] == "FAILED":
+            fail(f"dry-run row FAILED: {r}")
+        nums = [v for k, v in r.items() if isinstance(v, (int, float))]
+        nums += [v for v in r.get("card", {}).values()
+                 if isinstance(v, (int, float))]
+        if not all(math.isfinite(v) for v in nums):
+            fail(f"dry-run row with a value that is not finite: {r}")
+    want = {"train_4k": (64, 32), "prefill_32k": (8, 0)}
+    got = {r["shape"]: tuple(r["card"]["launches"].values())
+           for r in rows if "card" in r and r["shape"] in want}
+    if got != want:
+        fail(f"K6, K6b launches of the card cells {got}, want {want}")
+    return launched
 
 
 def main() -> int:
@@ -3232,7 +3351,7 @@ def main() -> int:
     phase_done("main_path")
 
     # ---- phase 5: the K4 path ------------------------------------------
-    k4_runs, prep0 = k4_path(np, torch, g, kops)
+    k4_runs = k4_path(np, torch, g, kops)
     phase_done("k4_path")
 
     # ---- phase 6: the service path, and its K5 route -------------------
@@ -3257,9 +3376,9 @@ def main() -> int:
 
     # ---- phase 6e: the distributed planes over an 8-shard mesh ----------
     k1_sharded, k4_sharded = distributed_path(
-        np, torch, g, hier, coarse_dev, idx, val, b_dev, iters, prep0, kops,
+        np, torch, g, hier, coarse_dev, idx, val, b_dev, iters, kops,
         rec, hier_mod)
-    del prep0, coarse_dev
+    del coarse_dev
     torch.cuda.empty_cache()
     phase_done("distributed_path")
 
@@ -3310,6 +3429,14 @@ def main() -> int:
     # ---- phase 9: the analysis checkers on the card ----------------------
     analysis_phase(torch, solver, b_dev, hier, device_ops)
     phase_done("analysis")
+
+    # ---- phase 10: the LM dry run (meta rows, hymba-1.5b's cells) --------
+    del solver, hier, idx, val, b_dev, solver_ref
+    torch.cuda.empty_cache()
+    dry = lm_dryrun_path(torch)
+    k6["dryrun"] = {"launches": dry["ssm_scan"]}
+    k6b["dryrun"] = {"launches": dry["ssm_scan_bwd"]}
+    phase_done("lm_dryrun")
     print(f"phase seconds: {json.dumps(phase_s)}, total "
           f"{sum(phase_s.values()):.3f} s", flush=True)
 

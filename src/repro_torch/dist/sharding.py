@@ -25,7 +25,7 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 from torch import nn
 
-from repro_torch.models.weights import stacked
+from repro_torch.models.weights import reference_leaf, stacked
 
 # TP over the *last* dim (output-expanding projections).
 _TP_LAST = {"w1", "w3", "router", "in_proj", "x_proj", "lm_head",
@@ -80,19 +80,38 @@ def _rule(name: str, in_moe: bool, shape: Tuple[int, ...],
     return tuple(dims)
 
 
-def param_pspecs(model: nn.Module, mesh_shape: Mapping[str, int],
-                 expert_shard: bool = False) -> Dict[str, Tuple[Axis, ...]]:
-    """``{parameter name: axes per dim}`` for ``model`` (on any device,
-    ``meta`` too) on a mesh of ``mesh_shape`` (axis name -> size, as
-    ``Mesh.shape``).  ``expert_shard=True`` shards the MoE expert tensors
-    over ``model`` on the expert dim instead of their ffn dim."""
+def leaf_pspecs(model: nn.Module, mesh_shape: Mapping[str, int],
+                expert_shard: bool = False
+                ) -> Dict[str, Tuple[Tuple[int, ...], Tuple[Axis, ...]]]:
+    """``{reference leaf: (its shape, axes per dim)}``: the reference's
+    tree as its rules see it, a per-layer leaf stacked ``[L, ...]``
+    (:func:`repro_torch.models.weights.reference_leaf` names it), for
+    ``model`` (on any device, ``meta`` too) on a mesh of ``mesh_shape``
+    (axis name -> size, as ``Mesh.shape``).  ``expert_shard`` true shards
+    the MoE expert tensors over ``model`` on the expert dim instead of
+    their ffn dim."""
     out = {}
     for full, p in model.named_parameters():
+        leaf = reference_leaf(full)
+        if leaf in out:
+            continue
         parts = full.split(".")
         shape = tuple(p.shape)
         if stacked(full):   # the reference's [L, ...] leaf
             shape = (len(getattr(model, parts[0])),) + shape
-        spec = _rule(parts[-1], "moe" in parts, shape, mesh_shape,
-                     expert_shard)
+        out[leaf] = (shape, _rule(parts[-1], "moe" in parts, shape,
+                                  mesh_shape, expert_shard))
+    return out
+
+
+def param_pspecs(model: nn.Module, mesh_shape: Mapping[str, int],
+                 expert_shard: bool = False) -> Dict[str, Tuple[Axis, ...]]:
+    """``{parameter name: axes per dim}`` for ``model``: each parameter's
+    part of its leaf's placement (:func:`leaf_pspecs`), the layer dim of
+    a stacked leaf dropped."""
+    leaves = leaf_pspecs(model, mesh_shape, expert_shard)
+    out = {}
+    for full, _ in model.named_parameters():
+        spec = leaves[reference_leaf(full)][1]
         out[full] = spec[1:] if stacked(full) else spec
     return out

@@ -9,7 +9,9 @@ first use) and their plain PyTorch versions:
                     of a graph Laplacian.
   ssm_scan.py     — K6 fused Mamba1 selective scan and K6b its gradient
                     (``SsmScan``: every Mamba layer's scan, serving and
-                    training).
+                    training), operators ``torch.ops.repro_torch.ssm_scan``
+                    and ``ssm_scan_bwd`` with shape-only forms on
+                    ``meta``.
   ref.py          — the plain version of each kernel.
   _launch.py      — operand checks, the CUDA stream and the launch counts
                     of all seven.

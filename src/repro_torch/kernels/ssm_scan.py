@@ -14,39 +14,45 @@ stack of every state (3.36 GB at hymba-1.5b's training shape).
 Mamba layer's scan runs through (:func:`repro_torch.models.layers.mamba_scan`),
 serving and training, on both routes.  Each launch adds one to its count
 in :data:`repro_torch.kernels._launch.launches`.
+
+Both are operators of their own, ``torch.ops.repro_torch.ssm_scan`` and
+``torch.ops.repro_torch.ssm_scan_bwd`` (``torch.library.custom_op``), so
+the tensor's device still picks the route (a CUDA tensor: the kernel or
+an error; a CPU tensor: the plain version) and a ``meta`` tensor takes
+each operator's shape-only form, which gives the outputs' shapes and
+types and computes nothing: a model traced on ``meta`` (the dry run,
+:mod:`repro_torch.launch.dryrun`) does not run the plain version's loop
+over the steps.  Each operator's operations and bytes are those of its
+launch model (:func:`scan_launch_cost`, :func:`scan_bwd_launch_cost`:
+``launch/roofline.py`` ``ssm_scan_launch``, ``ssm_scan_bwd_launch``),
+registered as its formula with ``torch.utils.flop_counter`` and read by
+the dry run's cost counter (:mod:`repro_torch.launch.hlo_costs`).
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import count, on_cuda, require, stream
+from repro_torch.launch import roofline as _roofline
 
 STATES = (4, 8, 16)   # the CUDA kernel's template instances
 
 
-def _io_operands(x1, dt, Bm, Cm, A, h0):
-    """The operands as the kernels take them: x1, dt, Bm, Cm all bf16 when
-    all four are (the serving and training paths'), else float32; x1 and
-    dt contiguous, Bm and Cm with unit stride over the state (strided
-    views of ``x_proj``'s output pass as they are); A and h0 float32.
-    Checks shapes and the state; returns the operands and the io type."""
-    for t, name in ((Bm, "Bm"), (Cm, "Cm")):
+def _check_shapes(x1, dt, Bm, Cm, A, h0):
+    """Raise ``ValueError`` unless the operands' shapes fit one another and
+    a kernel instance; returns ``(B, S, di, state)``."""
+    for t, name in ((x1, "x1"), (dt, "dt"), (Bm, "Bm"), (Cm, "Cm"),
+                    (h0, "h0")):
         if t.dim() != 3:
             raise ValueError(f"{name} must be 3-D, got shape "
                              f"{tuple(t.shape)}")
-    io = (torch.bfloat16 if all(t.dtype == torch.bfloat16
-                                for t in (x1, dt, Bm, Cm))
-          else torch.float32)
-    x1, dt = (t.to(io).contiguous() for t in (x1, dt))
-    # the kernels read B and C through their batch and step strides
-    Bm, Cm = (t.to(io) if t.stride(2) == 1 else t.to(io).contiguous()
-              for t in (Bm, Cm))
-    A, h0 = (t.float().contiguous() for t in (A, h0))
-    for t, name, dtype, ndim in ((x1, "x1", io, 3), (dt, "dt", io, 3),
-                                 (A, "A", torch.float32, 2),
-                                 (h0, "h0", torch.float32, 3)):
-        require(t, name, dtype, ndim)
+    if A.dim() != 2:
+        raise ValueError(f"A must be 2-D, got shape {tuple(A.shape)}")
     B, S, di = x1.shape
     state = A.shape[1]
     if state not in STATES:
@@ -61,7 +67,53 @@ def _io_operands(x1, dt, Bm, Cm, A, h0):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
                              f"{shape}")
+    return B, S, di, state
+
+
+def _io_operands(x1, dt, Bm, Cm, A, h0):
+    """The operands as the kernels take them: x1, dt, Bm, Cm all bf16 when
+    all four are (the serving and training paths'), else float32; x1 and
+    dt contiguous, Bm and Cm with unit stride over the state (strided
+    views of ``x_proj``'s output pass as they are); A and h0 float32.
+    Checks shapes and the state; returns the operands and the io type."""
+    _check_shapes(x1, dt, Bm, Cm, A, h0)
+    io = (torch.bfloat16 if all(t.dtype == torch.bfloat16
+                                for t in (x1, dt, Bm, Cm))
+          else torch.float32)
+    x1, dt = (t.to(io).contiguous() for t in (x1, dt))
+    # the kernels read B and C through their batch and step strides
+    Bm, Cm = (t.to(io) if t.stride(2) == 1 else t.to(io).contiguous()
+              for t in (Bm, Cm))
+    A, h0 = (t.float().contiguous() for t in (A, h0))
+    for t, name, dtype, ndim in ((x1, "x1", io, 3), (dt, "dt", io, 3),
+                                 (A, "A", torch.float32, 2),
+                                 (h0, "h0", torch.float32, 3)):
+        require(t, name, dtype, ndim)
     return (x1, dt, Bm, Cm, A, h0), io
+
+
+def _io_bytes(x1, dt, Bm, Cm) -> int:
+    """The bytes a value of x1, dt, Bm and Cm takes in the kernels: 2 when
+    all four are bf16, else 4 (:func:`_io_operands` casts to float32)."""
+    return 2 if all(t.dtype == torch.bfloat16
+                    for t in (x1, dt, Bm, Cm)) else 4
+
+
+def scan_launch_cost(x1, dt, Bm, Cm, A, h0) -> Tuple[int, int]:
+    """``(bytes, operations)`` of one K6 call on these operands (any
+    device, ``meta`` too): ``roofline.ssm_scan_launch``."""
+    B, S, di, state = _check_shapes(x1, dt, Bm, Cm, A, h0)
+    io = _io_bytes(x1, dt, Bm, Cm)
+    return _roofline.ssm_scan_launch(B, S, di, state, io, io)
+
+
+def scan_bwd_launch_cost(x1, dt, Bm, Cm, A, h0, dy, dhT=None
+                         ) -> Tuple[int, int]:
+    """``(bytes, operations)`` of one K6b call on these operands:
+    ``roofline.ssm_scan_bwd_launch``."""
+    B, S, di, state = _check_shapes(x1, dt, Bm, Cm, A, h0)
+    io = _io_bytes(x1, dt, Bm, Cm)
+    return _roofline.ssm_scan_bwd_launch(B, S, di, state, io, io)
 
 
 def ssm_scan(x1, dt, Bm, Cm, A, h0):
@@ -76,7 +128,14 @@ def ssm_scan(x1, dt, Bm, Cm, A, h0):
     four are bf16 (the serving path's) or all float32, converting in
     registers (exact); any other mix is cast to float32 first.  Bm and Cm
     may be strided views (unit stride over the state), as the model's
-    slices of the ``x_proj`` output are: no copy is made."""
+    slices of the ``x_proj`` output are: no copy is made.  On ``meta``
+    tensors only the outputs' shapes exist."""
+    return torch.ops.repro_torch.ssm_scan(x1, dt, Bm, Cm, A, h0)
+
+
+@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=())
+def _ssm_scan_op(x1: Tensor, dt: Tensor, Bm: Tensor, Cm: Tensor, A: Tensor,
+                 h0: Tensor) -> Tuple[Tensor, Tensor]:
     if not on_cuda(x1, dt, Bm, Cm, A, h0):
         return _ref.ssm_scan_ref(x1, dt, Bm, Cm, A, h0)
     from repro_torch.kernels._build import check, library
@@ -93,6 +152,19 @@ def ssm_scan(x1, dt, Bm, Cm, A, h0):
         state, int(io == torch.bfloat16), stream()), "ssm_scan")
     count("ssm_scan")
     return y, hT
+
+
+@_ssm_scan_op.register_fake
+def _ssm_scan_fake(x1, dt, Bm, Cm, A, h0):
+    B, S, di, state = _check_shapes(x1, dt, Bm, Cm, A, h0)
+    return (x1.new_empty((B, S, di), dtype=torch.float32),
+            x1.new_empty((B, di, state), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan)
+def _ssm_scan_flops(x1, dt, Bm, Cm, A, h0, out_shape=None, **kwargs) -> int:
+    B, S, di = x1
+    return _roofline.ssm_scan_launch(B, S, di, A[1], 2, 2)[1]
 
 
 def run_length() -> int:
@@ -120,7 +192,16 @@ def ssm_scan_bwd(x1, dt, Bm, Cm, A, h0, dy, dhT=None):
     (``launch/roofline.py`` ``ssm_scan_bwd_checkpoint_bytes``,
     ``ssm_scan_bwd_partial_bytes``).
     Bitwise equal to :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`,
-    which runs on CPU tensors."""
+    which runs on CPU tensors.  On ``meta`` tensors only the outputs'
+    shapes exist."""
+    return torch.ops.repro_torch.ssm_scan_bwd(x1, dt, Bm, Cm, A, h0, dy, dhT)
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_bwd", mutates_args=())
+def _ssm_scan_bwd_op(x1: Tensor, dt: Tensor, Bm: Tensor, Cm: Tensor,
+                     A: Tensor, h0: Tensor, dy: Tensor,
+                     dhT: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor,
+                                                     Tensor, Tensor, Tensor]:
     if not on_cuda(x1, dt, Bm, Cm, A, h0, dy, dhT):
         return _ref.ssm_scan_bwd_ref(x1, dt, Bm, Cm, A, h0, dy, dhT)
     from repro_torch.kernels._build import check, library
@@ -156,6 +237,20 @@ def ssm_scan_bwd(x1, dt, Bm, Cm, A, h0, dy, dhT=None):
         stream()), "ssm_scan_bwd")
     count("ssm_scan_bwd")
     return dx, ddt, dB, dC, dA, dh0
+
+
+@_ssm_scan_bwd_op.register_fake
+def _ssm_scan_bwd_fake(x1, dt, Bm, Cm, A, h0, dy, dhT):
+    _check_shapes(x1, dt, Bm, Cm, A, h0)
+    return tuple(t.new_empty(t.shape, dtype=torch.float32)
+                 for t in (x1, dt, Bm, Cm, A, h0))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan_bwd)
+def _ssm_scan_bwd_flops(x1, dt, Bm, Cm, A, h0, dy, dhT, out_shape=None,
+                        **kwargs) -> int:
+    B, S, di = x1
+    return _roofline.ssm_scan_bwd_launch(B, S, di, A[1], 2, 2)[1]
 
 
 class SsmScan(torch.autograd.Function):

@@ -9,6 +9,16 @@
   * :mod:`repro_torch.launch.dryrun_pdgrass` — the paper's production
     job, rounds of the inner engine at 2^25 off-tree rows on the
     production mesh.
+  * :mod:`repro_torch.launch.shapes` — the LM dry run's four shapes, the
+    skip rule, the inputs' stand-ins and each cell's step.
+  * :mod:`repro_torch.launch.hlo_costs` — the cost counter (a
+    ``TorchDispatchMode``; flops, bytes and calls of a step, on ``meta``
+    too), its layer fold and the collectives of the placements in closed
+    form.
+  * :mod:`repro_torch.launch.dryrun` — every (arch x shape x mesh) cell
+    counted on ``meta``, and a cell run for real on the card;
+    :mod:`repro_torch.launch.perf_iter` — one cell beside a config
+    variant.
 """
 from repro_torch.launch.mesh import (Mesh, make_mesh, make_mesh_for,
                                      make_production_mesh)

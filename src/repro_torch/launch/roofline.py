@@ -25,7 +25,8 @@ functions live here, and they count different things on purpose:
 
 Peaks are the H100 SXM's (NVIDIA's data sheet, dense rates, at the full
 700 W power limit): HBM3 at 3.35 TB/s, 67 TFLOP/s of float32 outside
-the tensor cores, and NVLink 4 at 450 GB/s a direction (half the data
+the tensor cores, 989 TFLOP/s of bf16 on them, and NVLink 4 at 450 GB/s
+a direction (half the data
 sheet's 900 GB/s, which counts both directions).  Data float32 and
 indices int32 unless a function says otherwise.
 
@@ -35,15 +36,23 @@ reference's ``analyze`` does: :func:`inner_round_work` (operations and
 bytes of one shard's round) and :func:`collective_bytes` (the counted
 collectives, :func:`repro_torch.core.collectives.count_collectives`),
 turned into seconds by :func:`roofline_terms`.
+
+The LM dry run (:mod:`repro_torch.launch.dryrun`) reads the reference's
+:class:`Roofline` from :func:`analyze` over a step's count
+(:mod:`repro_torch.launch.hlo_costs`), with products of bf16 operands at
+the tensor cores' rate (:data:`BF16_TC_FLOPS`), and
+:func:`model_flops_estimate`, the reference's 6ND / 2ND.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import torch
 
 HBM_BW = 3.35e12           # bytes/s, H100 SXM HBM3
 F32_FLOPS = 67e12          # float32 FLOP/s outside the tensor cores
+BF16_TC_FLOPS = 989e12     # bf16 FLOP/s of the tensor cores, dense
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 EXP_PER_CLOCK_SM = 16      # expf results an SM issues a clock (its SFUs)
 # NVLink 4 of an H100 SXM, one direction (900 GB/s both ways).  A least
@@ -387,3 +396,86 @@ def roofline_terms(flops: float, bytes_hbm: float, bytes_coll: float):
     return dict(t_compute=terms["compute"], t_memory=terms["memory"],
                 t_collective=terms["collective"],
                 bottleneck=max(terms, key=terms.get))
+
+
+# ---------------------------------------------------------------------------
+# The LM dry run: roofline terms of a counted step, and the useful work
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Roofline:
+    """The reference's roofline of one step on one device of a mesh, with
+    the tensor cores' share of the flops beside the total (``flops_tc``,
+    the port's: the reference counts every flop at one rate)."""
+    flops: float              # per device
+    bytes_hbm: float          # per device
+    bytes_coll: float         # per device
+    t_compute: float
+    t_memory: float
+    t_collective: float
+    bottleneck: str
+    model_flops: float = 0.0  # global 6ND / 2ND
+    useful_ratio: float = 0.0
+    per_kind: Dict[str, float] = dataclasses.field(default_factory=dict)
+    dynamic_whiles: int = 0
+    flops_tc: float = 0.0     # per device, of ``flops``: bf16 products
+
+    def as_dict(self):
+        return dataclasses.asdict(self)
+
+
+def analyze(costs, n_devices: int, model_flops: float = 0.0) -> Roofline:
+    """Roofline terms of a step counted whole (``costs``, a
+    :class:`repro_torch.launch.hlo_costs.Costs` of the global step: its
+    ``flops`` and ``bytes`` the work of every device together, its
+    ``coll`` already per device) on a mesh of ``n_devices``.
+
+    The work is split evenly over the devices.  That is a floor: the
+    reference's figure, read from the partitioned program, also counts
+    the work each device repeats (replicated norms, softmaxes, the
+    optimizer on replicated leaves).  Terms: the products of bf16
+    operands (``costs.flops_tc``) over :data:`BF16_TC_FLOPS` plus the rest
+    of the flops over :data:`F32_FLOPS`; the bytes over :data:`HBM_BW`;
+    the collective bytes over :data:`NVLINK_BW`.  ``useful_ratio`` is
+    ``model_flops`` over the counted flops of all devices."""
+    n = max(int(n_devices), 1)
+    flops = float(costs.flops) / n
+    flops_tc = float(costs.flops_tc) / n
+    bytes_hbm = float(costs.bytes) / n
+    per_kind = {k: float(v) for k, v in costs.coll.items()}
+    bc = sum(per_kind.values())
+    t_c = flops_tc / BF16_TC_FLOPS + (flops - flops_tc) / F32_FLOPS
+    t_m = bytes_hbm / HBM_BW
+    t_l = bc / NVLINK_BW
+    terms = {"compute": t_c, "memory": t_m, "collective": t_l}
+    useful = model_flops / (flops * n) if flops else 0.0
+    return Roofline(flops=flops, bytes_hbm=bytes_hbm, bytes_coll=float(bc),
+                    t_compute=t_c, t_memory=t_m, t_collective=t_l,
+                    bottleneck=max(terms, key=terms.get),
+                    model_flops=model_flops, useful_ratio=useful,
+                    per_kind=per_kind, dynamic_whiles=costs.dynamic_whiles,
+                    flops_tc=flops_tc)
+
+
+def model_flops_estimate(model, cfg, shape) -> float:
+    """The reference's 6 N D (train) or 2 N D (prefill, decode), ``N`` the
+    *active* parameters of ``model`` (any device, ``meta`` too): an MoE's
+    expert leaves (``*.moe.w1/w2/w3``) count ``top_k / n_experts`` of
+    theirs, and the embedding table (``d_model`` x the vocabulary padded
+    to 512) is left out; ``D`` the step's tokens (batch x sequence, batch
+    x 1 in decode)."""
+    total = 0
+    expert = 0
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        total += p.numel()
+        if "moe" in parts and parts[-1] in ("w1", "w2", "w3"):
+            expert += p.numel()
+    n_active = total
+    if cfg.n_experts:
+        n_active = total - expert + expert * cfg.top_k // cfg.n_experts
+    n_active -= cfg.d_model * (-(-cfg.vocab // 512) * 512)
+    tokens = shape.batch * (shape.seq if shape.kind in ("train", "prefill")
+                            else 1)
+    mult = 6 if shape.kind == "train" else 2
+    return float(mult * n_active * tokens)

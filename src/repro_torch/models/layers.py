@@ -352,13 +352,16 @@ def moe_ffn(x, p, cfg: ModelConfig) -> MoEOut:
         gi = r.gate_i.reshape(ng, G * k)
         pos_tk = torch.gather(r.pos, 2, gi[..., None])[..., 0]
         keep_tk = torch.gather(r.keep, 2, gi[..., None])[..., 0]
-        # slot tables: slot_token[g, e, c] = the token feeding that slot
+        # slot tables: slot_token[g, e, c] = the token feeding that slot; a
+        # dropped pair writes a spare slot past the end, so no shape hangs
+        # on the routing (no host read; the step runs on ``meta`` too)
         tok = (torch.arange(G * k, device=x.device) // k).expand(ng, G * k)
         g_idx = torch.arange(ng, device=x.device)[:, None].expand(ng, G * k)
-        slot_token = torch.zeros((ng, E, C), dtype=torch.int64,
+        slot = torch.where(keep_tk, (g_idx * E + gi) * C + pos_tk, ng * E * C)
+        slot_token = torch.zeros(ng * E * C + 1, dtype=torch.int64,
                                  device=x.device)
-        slot_token[g_idx[keep_tk], gi[keep_tk], pos_tk[keep_tk].long()] = \
-            tok[keep_tk]
+        slot_token.index_put_((slot.reshape(-1),), tok.reshape(-1))
+        slot_token = slot_token[:-1]
         xe = torch.gather(xt, 1, slot_token.reshape(ng, E * C, 1)
                           .expand(ng, E * C, d)).reshape(ng, E, C, d)
         ye = _expert_compute(xe, p, cfg)

@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K6 and K6b (K6's gradient) against their plain
 PyTorch versions, and the port's service, sharded planes, the production
-dry run, LM serving paths (every family) and training, on the card.
+dry run, LM serving paths (every family), training and the LM dry run's
+card cells, on the card.
 
 Every ``gpu``-marked test needs a CUDA device and skips without one
 (decided in a fixture).  The file imports no JAX, so it runs on a machine
@@ -1192,3 +1193,63 @@ def test_chip_smoke_takes_its_bounds_from_the_roofline_module():
                 if isinstance(t, ast.Name)}
     assert not {n for n in assigned if "HBM" in n or "FLOPS" in n}
     assert "3.35e12" not in src and "67e12" not in src
+
+
+@pytest.mark.gpu
+def test_gpu_k6_and_k6b_ops_launch_only_their_kernels(cuda):
+    """K6 and K6b as operators (``torch.ops.repro_torch``) add no copy on
+    the card: on hymba's training layout (bf16, B and C strided views of
+    ``x_proj``'s output) one K6 call runs one device kernel and one K6b
+    call its three (checkpoints, reverse scan, reduction)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, S, di, state, rank = 2, 64, 96, 16, 8
+    x1 = torch.randn((B, S, di), generator=gen, device=cuda).bfloat16()
+    dt = torch.rand((B, S, di), generator=gen, device=cuda).bfloat16()
+    xp = torch.randn((B, S, rank + 2 * state), generator=gen,
+                     device=cuda).bfloat16()
+    Bm, Cm = xp[..., rank:rank + state], xp[..., rank + state:]
+    A = -torch.rand((di, state), generator=gen, device=cuda) - 0.1
+    h0 = torch.zeros((B, di, state), device=cuda)
+    dy = torch.randn((B, S, di), generator=gen, device=cuda)
+    dhT = torch.zeros_like(h0)
+    kops.ssm_scan(x1, dt, Bm, Cm, A, h0)
+    kops.ssm_scan_bwd(x1, dt, Bm, Cm, A, h0, dy, dhT)
+    torch.cuda.synchronize()
+    for fn, n in ((lambda: kops.ssm_scan(x1, dt, Bm, Cm, A, h0), 1),
+                  (lambda: kops.ssm_scan_bwd(x1, dt, Bm, Cm, A, h0, dy,
+                                             dhT), 3)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == n and all("ssm_scan" in k for k in names), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,want", [("train_4k", (4, 2)),
+                                        ("prefill_32k", (2, 0)),
+                                        ("decode_32k", (0, 0))])
+def test_gpu_run_cell_launches_equal_the_count(cuda, shape, want):
+    """A reduced hymba-1.5b cell run on the card by the dry run: K6 and
+    K6b launch as often as the cost counter counts their calls on
+    ``meta`` (2 Mamba layers: K6 forward and in the recompute, K6b once
+    each), the loss or logits finite, the record's numbers set."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg, r = get_config("hymba-1.5b"), reduced(get_config("hymba-1.5b"))
+    ov = {f.name: getattr(r, f.name) for f in dataclasses.fields(cfg)
+          if getattr(r, f.name) != getattr(cfg, f.name)}
+    row = dryrun.run_cell("hymba-1.5b", shape, make_production_mesh(
+        device="meta"), "16x16", verbose=False, cfg_overrides=ov,
+        device="cuda", run_batch=2, run_seq=64, run_calls=2)
+    rec = row["card"]
+    assert rec["launches"] == rec["counted"]
+    assert tuple(rec["launches"].values()) == want
+    assert rec["finite"] and rec["step_ms"] > 0 and rec["bound_ms"] > 0
+    assert rec["peak_bytes"] >= rec["arg_bytes"] > 0

@@ -133,7 +133,8 @@ def test_starcoder2_cut_to_8_layers_has_the_card_run_count():
     ("mixtral-8x22b", dict(n_layers=4), 10_418_903_040),
     ("arctic-480b", dict(n_layers=2, n_experts=32), 7_601_097_728),
     ("phi-3-vision-4.2b", {}, 3_825_404_928),
-    ("seamless-m4t-medium", {}, 878_770_176)])
+    ("seamless-m4t-medium", {}, 878_770_176),
+    ("hymba-1.5b", dict(n_layers=8), 441_550_400)])
 def test_card_run_cuts_have_their_counts(arch, cut, count):
     """The parameter counts ``chip_smoke.py`` gates, at the cuts it
     serves, equal to the reference's at the same config."""
