@@ -13,7 +13,7 @@ block — canonical documentation and checker input in one place::
 
     # lock: self._lock
     #   _pending _next_ticket _sched
-    #   _timing _warmed
+    #   _warmed _conv_digests
 
 Every field named in the inventory of the enclosing class may only be
 read/written

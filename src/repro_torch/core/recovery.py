@@ -46,7 +46,7 @@ import torch
 
 from repro_torch.core.graph_ops import scatter_drop
 from repro_torch.kernels import ops as kops
-from repro_torch.obs import get_tracer
+from repro_torch.obs.device import synced_span
 
 STATUS_OPEN = 0       # not yet processed
 STATUS_RECOVERED = 1  # recovered into the sparsifier
@@ -241,7 +241,6 @@ def recover_rounds(prob: RecoveryProblem, target: int = 2**31 - 1, *,
     kidx = torch.arange(K, device=dev)
     later = kidx[None, :] > kidx[:, None]
 
-    tracer = get_tracer()
     rounds = 0
     n_cand = torch.zeros((), dtype=torch.int64, device=dev)
     n_killed = torch.zeros((), dtype=torch.int64, device=dev)
@@ -278,10 +277,9 @@ def recover_rounds(prob: RecoveryProblem, target: int = 2**31 - 1, *,
 
         # ---- in-block order resolution (Lemma 8) --------------------------
         # Its share of the build is a span of its own; with the tracer on,
-        # the queue drains first so the span times this block's work only.
-        if tracer.enabled and dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        with tracer.span("recovery.in_block"):
+        # the queue drains as it opens and closes, so it times this
+        # block's work only.
+        with synced_span("recovery.in_block", dev):
             sim = strict_similarity_matrix(csu, csv, cbeta, csu, csv)
             same = cseg[:, None] == cseg[None, :]
             sim = sim & same & later & cvalid[:, None] & cvalid[None, :]

@@ -4,7 +4,8 @@
     trace-event (Perfetto) + JSONL export; near-zero-cost when disabled.
   * :mod:`repro_torch.obs.metrics` — counters / gauges / latency histograms.
   * :mod:`repro_torch.obs.device`  — ``torch.profiler.record_function`` and
-    NVTX ranges that put solver semantics on device timelines.
+    NVTX ranges that put solver semantics on device timelines, and spans
+    that sync the device so a stage's device work is charged to it.
 """
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,  # noqa: F401
                                      Metrics, get_metrics)

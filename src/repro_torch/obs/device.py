@@ -1,14 +1,18 @@
-"""Device-timeline annotations: semantic labels for the solver internals.
+"""Device-timeline annotations and synced spans for the solver internals.
 
 Host spans (:mod:`repro_torch.obs.trace`) time the host's dispatch; CUDA
-launches are asynchronous, so they do not time the device.  Two mechanisms
-put solver semantics onto the profiler's device timeline instead:
+launches are asynchronous, so they do not time the device.  Two helpers
+close that gap, both free while the port's tracer is off:
 
-  * :func:`named_scope` — a ``torch.profiler.record_function`` range (shown
-    in ``torch.profiler`` traces; near-free when no profiler is active) plus
-    an NVTX range when the work runs on CUDA.  Always on.
-  * :func:`trace_annotation` — the same pair, but only while the port's
-    tracer is enabled, so the disabled hot path stays free.
+  * :func:`trace_annotation` — a ``torch.profiler.record_function`` range
+    (shown in ``torch.profiler`` traces) plus an NVTX range when CUDA is
+    up, so a profile labels device work with solver semantics.
+  * :func:`synced_span` — a tracer span that drains the device queue on
+    entry and on exit, so a stage's device work is charged to that stage
+    and not to whichever span waits next.
+
+With the tracer off each is one attribute read returning the shared
+no-op singleton: no range, no clock, no sync.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import contextlib
 
 import torch
 
-from repro_torch.obs.trace import get_tracer
+from repro_torch.obs.trace import NOOP_SPAN, _Span, get_tracer
 
 
 @contextlib.contextmanager
@@ -32,14 +36,36 @@ def _ranges(name: str):
                 torch.cuda.nvtx.range_pop()
 
 
-def named_scope(name: str):
-    """Profiler range (plus NVTX on CUDA) around the ops issued under it."""
-    return _ranges(name)
-
-
 def trace_annotation(name: str):
-    """Profiler range around a dispatch; no-op unless the tracer is on."""
+    """Profiler range (plus NVTX on CUDA) around the ops issued under it;
+    the no-op singleton unless the tracer is on."""
     if not get_tracer().enabled:
-        return contextlib.nullcontext()
+        return NOOP_SPAN
     return _ranges(name)
 
+
+@contextlib.contextmanager
+def _synced(span, device: torch.device):
+    # The entry's sync drains earlier work before the clock starts; the
+    # exit's waits for this span's work before the clock stops.
+    torch.cuda.synchronize(device)
+    with span as live:
+        try:
+            yield live
+        finally:
+            torch.cuda.synchronize(device)
+
+
+def synced_span(name: str, device, **attrs):
+    """``tracer.span(name, **attrs)`` that, while the tracer is on and
+    ``device`` is CUDA, synchronizes ``device`` as it opens and as it
+    closes; on the CPU, or in a tree the sampler dropped, the plain span;
+    with the tracer off the no-op."""
+    tracer = get_tracer()
+    if not tracer.enabled:
+        return NOOP_SPAN
+    span = tracer.span(name, **attrs)
+    device = torch.device(device)
+    if device.type != "cuda" or not isinstance(span, _Span):
+        return span
+    return _synced(span, device)

@@ -1,8 +1,8 @@
 """Metrics registry: counters, gauges, bounded-bucket latency histograms.
 
 One namespaced surface for every number the serving stack used to scatter
-across ad-hoc dicts (``SolverService._timing``), per-object counters
-(``LRUCache.hits``), and module globals (``cache.HASH_EVENTS``):
+across per-object counters (``LRUCache.hits``) and module globals
+(``cache.HASH_EVENTS``):
 
     from repro_torch.obs import get_metrics
 

@@ -6,7 +6,10 @@
 
 ``prepare`` runs the shared steps 1-3 (tree stage, binary lifting, score
 stage, subtask grouping) and returns a :class:`Prepared` that any engine
-can consume.  Both methods take ``device=`` (default ``"cuda"``).
+can consume.  Both methods take ``device=`` (default ``"cuda"``).  Their
+``pipeline.*`` spans sync ``device`` while the tracer is on
+(:func:`repro_torch.obs.device.synced_span`), so each stage's device work
+is charged to that stage.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ from repro_torch.core import lifting as lift_mod
 from repro_torch.core import recovery as rec_mod
 from repro_torch.core.graph import Graph
 from repro_torch.core.sparsify import Prepared, Sparsifier
-from repro_torch.obs import get_metrics, get_tracer
+from repro_torch.obs import get_metrics
+from repro_torch.obs.device import synced_span
 from repro_torch.pipeline.config import PipelineConfig, validate
 from repro_torch.pipeline.stages import (RECOVERY_ENGINES, SCORE_STAGES,
                                          TREE_STAGES)
@@ -44,15 +48,15 @@ class Pipeline:
         """Everything up to (and excluding) edge recovery — engine-agnostic."""
         cfg = self.config
         n, c, chunk = graph.n, cfg.c, cfg.chunk
-        tracer = get_tracer()
-        with tracer.span("pipeline.prepare", n=n, m=graph.m) as psp:
+        with synced_span("pipeline.prepare", device, n=n,
+                         m=graph.m) as psp:
             src = torch.tensor(graph.src, device=device)
             dst = torch.tensor(graph.dst, device=device)
             w = torch.tensor(graph.weight, device=device)
 
-            with tracer.span("pipeline.tree", kind=cfg.tree.kind):
+            with synced_span("pipeline.tree", device, kind=cfg.tree.kind):
                 tree = TREE_STAGES[cfg.tree.kind](n, src, dst, w, cfg.tree)
-            with tracer.span("pipeline.lifting"):
+            with synced_span("pipeline.lifting", device):
                 lift = lift_mod.build_lifting(n, tree.parent, tree.parent_w,
                                               tree.depth)
 
@@ -61,7 +65,8 @@ class Pipeline:
             off_t = torch.as_tensor(off_ids, device=device)
             ou, ov, ow = src[off_t], dst[off_t], w[off_t]
 
-            with tracer.span("pipeline.scores", kind=cfg.score.kind,
+            with synced_span("pipeline.scores", device,
+                             kind=cfg.score.kind,
                              m_off=int(off_ids.shape[0])):
                 l = lift_mod.lca(lift, ou, ov)
                 r_t = lift_mod.resistance_distance(lift, ou, ov, l)
@@ -77,7 +82,7 @@ class Pipeline:
                 sig = lift_mod.ancestor_signatures(tree.parent, c)
                 sig_u, sig_v = sig[ou.long()], sig[ov.long()]
 
-            with tracer.span("pipeline.grouping"):
+            with synced_span("pipeline.grouping", device):
                 # Host-side ordering: LCA ascending, score descending
                 # (stable) — the reference's np.lexsort.
                 l_np = l.cpu().numpy()
@@ -133,8 +138,8 @@ class Pipeline:
         target = min(int(math.ceil(cfg.alpha * graph.n)), prep.m_off)
 
         engine = RECOVERY_ENGINES[cfg.recovery.kind]
-        with get_tracer().span("pipeline.recovery", kind=cfg.recovery.kind,
-                               target=target) as rsp:
+        with synced_span("pipeline.recovery", device,
+                         kind=cfg.recovery.kind, target=target) as rsp:
             recovered_mask, engine_stats = engine(prep, target, cfg, **ctx)
             rsp.set(n_recovered=int(recovered_mask.sum()))
         m = get_metrics()

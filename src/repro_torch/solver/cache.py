@@ -57,13 +57,14 @@ def content_fingerprint(graph: Graph) -> str:
     global HASH_EVENTS
     HASH_EVENTS += 1
     get_metrics().inc("store.hash_events")
-    h = hashlib.sha256()
-    h.update(b"pdgrass-graph-v1")
-    h.update(int(graph.n).to_bytes(8, "little"))
-    h.update(graph.src.tobytes())
-    h.update(graph.dst.tobytes())
-    h.update(graph.weight.tobytes())
-    fp = h.hexdigest()
+    with get_tracer().span("store.hash", n=graph.n, m=graph.m):
+        h = hashlib.sha256()
+        h.update(b"pdgrass-graph-v1")
+        h.update(int(graph.n).to_bytes(8, "little"))
+        h.update(graph.src.tobytes())
+        h.update(graph.dst.tobytes())
+        h.update(graph.weight.tobytes())
+        fp = h.hexdigest()
     for arr in (graph.src, graph.dst, graph.weight):
         arr.flags.writeable = False
     object.__setattr__(graph, "_content_fp", fp)

@@ -33,7 +33,9 @@ two runs give the same bits.
 
 The reference's PCG ``lax.while_loop`` (``device_pcg.py:309``) is a Python
 loop that tests for "every column done" on the host every 8 trips.  Finished columns are frozen (alpha 0, p and rz held), so the extra
-trips change neither ``x`` nor ``iters``.
+trips change neither ``x`` nor ``iters``.  With the tracer on,
+``pcg.loop`` spans the trips and ``pcg.wait`` each of those tests, so the
+loop less its waits is the host issuing the work.
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ from repro_torch.kernels.vcycle_fused import (cheby_coeffs, cheby_recurrence,
                                               make_fused_chebyshev,
                                               make_fused_restrict_residual,
                                               spmv_ell_batched)
-from repro_torch.obs.device import named_scope
+from repro_torch.obs import get_tracer
+from repro_torch.obs.device import trace_annotation
 from repro_torch.solver.hierarchy import Hierarchy
 
 
@@ -193,14 +196,14 @@ def make_vcycle(hier: Hierarchy, *, degree: int = 2,
 
     def cycle(l: int, r):
         if l == len(hier.levels):
-            with named_scope("vcycle.coarse"):
+            with trace_annotation("vcycle.coarse"):
                 return coarse_solve(r, hier.coarse_chol)
         smooth = smoothers[l]
-        with named_scope(f"vcycle.L{l}.down"):
+        with trace_annotation(f"vcycle.L{l}.down"):
             z = smooth(r)                                   # pre-smooth
             rc = restricts[l](r, z)                         # restrict
         zc = cycle(l + 1, rc)                               # coarse correct
-        with named_scope(f"vcycle.L{l}.up"):
+        with trace_annotation(f"vcycle.L{l}.up"):
             if fused:               # K2 reads z + zc[agg] as it post-smooths
                 return smooth(r, z, zc)
             return smooth(r, z + zc[aggs[l]])               # prolong, smooth
@@ -267,29 +270,36 @@ def _pcg_loop(matvec: Callable, b, msolve: Callable, tol, maxiter,
     done = (bnorm <= 0) | (maxiter_t <= 0)
     iters = torch.zeros((k,), dtype=torch.int32, device=dev)
     it = 0
-    # analysis: allow(sync-host-sync): the designated test of "all done"
-    # analysis: allow(audit-host-transfer): the designated test, at run time
-    # analysis: allow(audit-loop-transfer): once every _PCG_CHECK_EVERY trips
-    while it < max_trips and bool((~done).any()):        # host sync
-        for _ in range(min(_PCG_CHECK_EVERY, max_trips - it)):
-            active = ~done
-            Ap = matvec(p)
-            pAp = colsum(p * Ap)
-            alpha = torch.where(active,
-                                rz / torch.where(pAp != 0, pAp, 1.0), 0.0)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            if (it + 1) % replace_every == 0:
-                r = b - matvec(x)
-            relres = torch.sqrt(colsum(r * r)) / bn
-            iters = iters + active.to(torch.int32)
-            done = done | (relres <= tol_inner) | (iters >= maxiter_t)
-            z = msolve(r)
-            rz_new = colsum(r * z)
-            beta = rz_new / torch.where(rz != 0, rz, 1.0)
-            p = torch.where(active, z + beta * p, p)
-            rz = torch.where(active, rz_new, rz)
-            it += 1
+    # pcg.loop less its pcg.wait spans is the host issuing the trips
+    tracer = get_tracer()
+    with tracer.span("pcg.loop", k=k):
+        while it < max_trips:
+            with tracer.span("pcg.wait"):
+                # analysis: allow(sync-host-sync): the test of "all done"
+                # analysis: allow(audit-host-transfer): that test, run time
+                # analysis: allow(audit-loop-transfer): every 8th trip
+                busy = bool((~done).any())               # host sync
+            if not busy:
+                break
+            for _ in range(min(_PCG_CHECK_EVERY, max_trips - it)):
+                active = ~done
+                Ap = matvec(p)
+                pAp = colsum(p * Ap)
+                alpha = torch.where(active,
+                                    rz / torch.where(pAp != 0, pAp, 1.0), 0.0)
+                x = x + alpha * p
+                r = r - alpha * Ap
+                if (it + 1) % replace_every == 0:
+                    r = b - matvec(x)
+                relres = torch.sqrt(colsum(r * r)) / bn
+                iters = iters + active.to(torch.int32)
+                done = done | (relres <= tol_inner) | (iters >= maxiter_t)
+                z = msolve(r)
+                rz_new = colsum(r * z)
+                beta = rz_new / torch.where(rz != 0, rz, 1.0)
+                p = torch.where(active, z + beta * p, p)
+                rz = torch.where(active, rz_new, rz)
+                it += 1
     x = center(x)
     relres = torch.sqrt(colsum((b - matvec(x)) ** 2)) / bn  # true residual
     return BatchedPCGResult(x=x, iters=iters, relres=relres,
@@ -345,7 +355,7 @@ def make_solver(idx, val, hierarchy: Optional[Hierarchy] = None,
 
     def solve(b, tol=1e-5, maxiter=2000):
         b = torch.as_tensor(b, dtype=torch.float32, device=device)
-        with named_scope("batched_pcg"):
+        with trace_annotation("batched_pcg"):
             return batched_pcg(matvec, _center(b), msolve, tol=tol,
                                maxiter=maxiter)
 

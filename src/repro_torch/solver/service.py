@@ -226,7 +226,7 @@ class SolverService:
         # `with self._lock` or from a *_locked method.
         # lock: self._lock
         #   _pending _pending_columns _next_ticket _sched
-        #   _solvers _warmed _timing _conv_digests _solves_by_config
+        #   _solvers _warmed _conv_digests _solves_by_config
         self._lock = threading.RLock()
         # "submitted" counts admitted requests (rejected ones never enter
         # the queue), so submitted/rejected is the admission split.
@@ -236,9 +236,6 @@ class SolverService:
         self._warmed: set = set()   # (key, k_pad) buckets warmup has run
         self._solves_by_config: "collections.Counter[str]" = \
             collections.Counter()
-        # cumulative compile-vs-solve wall-time split (ms), see stats()
-        self._timing = {"warmup_compile_ms": 0.0, "setup_ms": 0.0,
-                        "solve_ms": 0.0}
         # config digests with convergence histograms (see stats())
         self._conv_digests: set = set()
 
@@ -301,9 +298,10 @@ class SolverService:
         # build OUTSIDE the lock: make_solver stages device arrays and can
         # take a while — holding _lock here would stall every submit
         idx, val, hier = artifacts
-        fn = make_solver(idx, val, hierarchy=hier, precond=self.precond,
-                         matvec_impl=self.matvec_impl, mesh=self.mesh,
-                         shard_axis=self.shard_axis, device=self.device)
+        with get_tracer().span("solver.setup"):
+            fn = make_solver(idx, val, hierarchy=hier, precond=self.precond,
+                             matvec_impl=self.matvec_impl, mesh=self.mesh,
+                             shard_axis=self.shard_axis, device=self.device)
         with self._lock:
             # two racing builders: first insert wins, both get one closure
             fn = self._solvers.setdefault(key, fn)
@@ -325,7 +323,8 @@ class SolverService:
         zero-RHS solve (a zero column converges in zero iterations, so the
         cost is the first-call set-up: the kernel library's build and
         load, allocator growth), moving it out of the first real flush.
-        Its wall time lands in ``stats()["timing"]["warmup_compile_ms"]``,
+        Its wall time lands in the ``solver.warmup.compile_ms`` histogram
+        of ``stats()["metrics"]`` (``solver.warmup.compiles`` counts them),
         booked once per bucket: there is no jit cache to inspect, so this
         is the reference's own fallback."""
         handle = self.register(graph)
@@ -362,8 +361,6 @@ class SolverService:
                 with self._lock:
                     compiled = (key, k_pad) not in self._warmed
                     self._warmed.add((key, k_pad))
-                    if compiled:
-                        self._timing["warmup_compile_ms"] += compile_ms
                 if compiled:
                     self.metrics.observe("solver.warmup.compile_ms",
                                          compile_ms)
@@ -533,7 +530,6 @@ class SolverService:
                               "device": str(self.device)},
                 "mesh": {"descriptor": mesh_descriptor(self.mesh,
                                                        self.shard_axis)},
-                "timing": dict(self._timing),
                 "metrics": {**get_metrics().snapshot(),
                             **self.metrics.snapshot()},
                 "convergence": convergence,
@@ -609,43 +605,45 @@ class SolverService:
             solve = self._solver_for(key, artifacts)
             asp.set(source=source)
 
-        cols, owner = [], []       # owner[j] = (entry-idx, col-in-request)
-        for e, (_, _, req) in enumerate(entries):
-            b = np.asarray(req.b, dtype=np.float32)
-            b = b[:, None] if b.ndim == 1 else b
-            for j in range(b.shape[1]):
-                cols.append(b[:, j])
-                owner.append((e, j))
-        k = len(cols)
-        k_pad = _next_pow2(k)
-        B = np.zeros((g.n, k_pad), np.float32)
-        B[:, :k] = np.stack(cols, axis=1)
-        # L is singular with nullspace = constants: only the mean-zero
-        # component of b is solvable.  Center here so the residual
-        # measurement below targets the solvable system (else the
-        # unsolvable mean would read as non-convergence).
-        B -= _col_mean(B)
-        # Per-column tolerance and iteration budget: each request keeps
-        # its own contract even when batched with stricter/larger
-        # neighbors.  Padding columns are inert BY CONSTRUCTION — tol=inf
-        # and maxiter=0 mean they can never drive batched_pcg's while-loop
-        # (done from iteration zero) nor the refinement pass (zero
-        # remaining budget, relres 0 <= inf), independent of the separate
-        # zero-RHS short-circuit.
-        reqs = [req for _, _, req in entries]
-        tol_col = np.full(k_pad, np.inf)
-        maxiter_col = np.zeros(k_pad, np.int32)
-        for j, (e, _) in enumerate(owner):
-            tol_col[j] = reqs[e].tol
-            maxiter_col[j] = reqs[e].maxiter
-        # The f32 device solve floors around 1e-7 relative residual; ask
-        # it only for what it can deliver and let the f64 refinement
-        # passes close the rest (each pass multiplies the true residual
-        # by ~inner_tol).  Per column: a loose-tol request batched with
-        # a strict one stops at its own contract instead of riding along
-        # to the group minimum.
-        inner_tol = torch.as_tensor(
-            np.maximum(tol_col, 1e-5).astype(np.float32), device=self.device)
+        with tracer.span("solver.stage", requests=len(entries)):
+            cols, owner = [], []       # owner[j] = (entry-idx, col-in-request)
+            for e, (_, _, req) in enumerate(entries):
+                b = np.asarray(req.b, dtype=np.float32)
+                b = b[:, None] if b.ndim == 1 else b
+                for j in range(b.shape[1]):
+                    cols.append(b[:, j])
+                    owner.append((e, j))
+            k = len(cols)
+            k_pad = _next_pow2(k)
+            B = np.zeros((g.n, k_pad), np.float32)
+            B[:, :k] = np.stack(cols, axis=1)
+            # L is singular with nullspace = constants: only the mean-zero
+            # component of b is solvable.  Center here so the residual
+            # measurement below targets the solvable system (else the
+            # unsolvable mean would read as non-convergence).
+            B -= _col_mean(B)
+            # Per-column tolerance and iteration budget: each request keeps
+            # its own contract even when batched with stricter/larger
+            # neighbors.  Padding columns are inert BY CONSTRUCTION — tol=inf
+            # and maxiter=0 mean they can never drive batched_pcg's while-loop
+            # (done from iteration zero) nor the refinement pass (zero
+            # remaining budget, relres 0 <= inf), independent of the separate
+            # zero-RHS short-circuit.
+            reqs = [req for _, _, req in entries]
+            tol_col = np.full(k_pad, np.inf)
+            maxiter_col = np.zeros(k_pad, np.int32)
+            for j, (e, _) in enumerate(owner):
+                tol_col[j] = reqs[e].tol
+                maxiter_col[j] = reqs[e].maxiter
+            # The f32 device solve floors around 1e-7 relative residual; ask
+            # it only for what it can deliver and let the f64 refinement
+            # passes close the rest (each pass multiplies the true residual
+            # by ~inner_tol).  Per column: a loose-tol request batched with
+            # a strict one stops at its own contract instead of riding along
+            # to the group minimum.
+            inner_tol = torch.as_tensor(
+                np.maximum(tol_col, 1e-5).astype(np.float32),
+                device=self.device)
 
         t0 = time.perf_counter()
         with tracer.span("solver.solve", k=k, k_pad=k_pad, n=g.n), \
@@ -662,15 +660,17 @@ class SolverService:
         # for the correction on the device until tol is genuinely met.
         # The residual matvec runs over the Graph's own CSR arrays
         # (numpy f64, no scipy on the solve path).
-        B64 = B.astype(np.float64)
-        bn = np.maximum(_col_norm(B64),
-                        np.finfo(np.float64).tiny)
+        with tracer.span("solver.residual", k=k, pass_=0):
+            B64 = B.astype(np.float64)
+            bn = np.maximum(_col_norm(B64),
+                            np.finfo(np.float64).tiny)
+            resid = B64 - g.laplacian_matvec(x)
+            relres = _col_norm(resid) / bn
         refinements = 0
-        resid = B64 - g.laplacian_matvec(x)
-        relres = _col_norm(resid) / bn
         while refinements < self.max_refine and np.any(relres > tol_col):
             rc = resid - _col_mean(resid)
-            # corrections draw from each column's remaining budget
+            # corrections draw from each column's remaining budget; the
+            # span ends on the read-back, as solver.solve's does
             with tracer.span("solver.refine", pass_=refinements + 1,
                              k=k, k_pad=k_pad), \
                     trace_annotation("solver.refine"):
@@ -680,23 +680,25 @@ class SolverService:
                              maxiter=torch.as_tensor(np.maximum(
                                  maxiter_col - iters, 0),
                                  device=self.device))
-            x_new = x + corr.x.cpu().numpy().astype(np.float64)
-            resid_new = B64 - g.laplacian_matvec(x_new)
-            relres_new = _col_norm(resid_new) / bn
+                dx = corr.x.cpu().numpy().astype(np.float64)
+                corr_iters = corr.iters.cpu().numpy()
+            x_new = x + dx
+            with tracer.span("solver.residual", k=k,
+                             pass_=refinements + 1):
+                resid_new = B64 - g.laplacian_matvec(x_new)
+                relres_new = _col_norm(resid_new) / bn
             # accept per column whenever the correction improved it ...
             take = relres_new < relres
             x = np.where(take, x_new, x)
             resid = np.where(take, resid_new, resid)
             halved = np.any(relres_new < 0.5 * relres)
             relres = np.where(take, relres_new, relres)
-            iters = iters + corr.iters.cpu().numpy()
+            iters = iters + corr_iters
             refinements += 1
             if not halved:
                 break  # ... but stop once passes stall at the f32 floor
         solve_ms = (time.perf_counter() - t0) * 1e3
         with self._lock:
-            self._timing["setup_ms"] += setup_ms
-            self._timing["solve_ms"] += solve_ms
             self._conv_digests.add(config_digest)
         conv = relres <= tol_col
         # Convergence telemetry, fetched ONCE per flush group from arrays

@@ -47,7 +47,7 @@ from repro_torch.core.collectives import all_gather, psum
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.vcycle_fused import spmv_ell_batched
 from repro_torch.obs import get_tracer
-from repro_torch.obs.device import named_scope
+from repro_torch.obs.device import trace_annotation
 from repro_torch.solver.device_pcg import (BatchedPCGResult, _center,
                                            _pcg_loop, coarse_solve, colsum,
                                            default_matvec_impl,
@@ -312,14 +312,14 @@ def make_sharded_solver(idx, val, hierarchy: Optional[Hierarchy] = None,
 
     def cycle(l, r):
         if l == n_levels:
-            with named_scope("sharded_vcycle.coarse"):
+            with trace_annotation("sharded_vcycle.coarse"):
                 return coarse(r)
         mv, smooth = lev_mvs[l], smoothers[l]
-        with named_scope(f"sharded_vcycle.L{l}.down"):
+        with trace_annotation(f"sharded_vcycle.L{l}.down"):
             z = smooth(r)                                 # pre-smooth
             rc = restrict(l, r - mv(z))                   # restrict
         zc = cycle(l + 1, rc)                             # coarse correct
-        with named_scope(f"sharded_vcycle.L{l}.up"):
+        with trace_annotation(f"sharded_vcycle.L{l}.up"):
             z = z + all_gather(zc, tiled=True)[aggs[l]]   # prolong
             return smooth(r, z)                           # post-smooth
 
@@ -337,7 +337,7 @@ def make_sharded_solver(idx, val, hierarchy: Optional[Hierarchy] = None,
         k = b.shape[1]
         bp = torch.zeros((n_pad, k), dtype=b.dtype, device=device)
         bp[:n] = b
-        with named_scope("sharded_pcg"):
+        with trace_annotation("sharded_pcg"):
             res = _pcg_loop(matvec, bp.view(n_sh, n_loc, k), msolve, tol,
                             maxiter, colsum=_colsum, center=_pcenter)
         return BatchedPCGResult(x=res.x.reshape(n_pad, k)[:n],

@@ -318,7 +318,7 @@ def _designated_sync(src):
     allow pragmas of the lines above it."""
     lines = src.splitlines()
     (at,) = [i for i, t in enumerate(lines)
-             if t.strip().startswith("while it < max_trips and bool(")]
+             if t.strip().startswith("busy = bool(")]
     j = at
     while lines[j - 1].strip().startswith("# analysis: allow("):
         j -= 1

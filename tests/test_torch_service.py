@@ -985,9 +985,12 @@ def test_warmup_widths_books_each_bucket_once():
     with pytest.raises(ValueError, match="widths"):
         svc.warmup(h, widths=[0])
     svc.warmup(h, widths=[1, 3])               # buckets 1 and 4
-    timing = svc.stats()["timing"]
-    compiles = svc.stats()["metrics"]["solver.warmup.compiles"]
-    assert timing["warmup_compile_ms"] > 0 and compiles == 2
+    metrics = svc.stats()["metrics"]
+    booked = metrics["solver.warmup.compile_ms"]
+    assert booked["count"] == 2 and booked["sum"] > 0
+    assert metrics["solver.warmup.compiles"] == 2
     svc.warmup(h, widths=[4, 1])               # the same buckets again
-    assert svc.stats()["timing"] == timing
-    assert svc.stats()["metrics"]["solver.warmup.compiles"] == 2
+    metrics = svc.stats()["metrics"]
+    assert metrics["solver.warmup.compile_ms"] == booked
+    assert metrics["solver.warmup.compiles"] == 2
+    assert "timing" not in svc.stats()
