@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-  1. build the CUDA kernels K1-K6 and K6b from
+  1. build the CUDA kernels K1-K6, K6b and K7 from
      ``src/repro_torch/kernels/csrc``;
   2. hold each kernel against its plain PyTorch version on the card at
      edge sizes (n = 31, 100, 257; k = 1, 3, 8, 16; x with more rows than
@@ -21,7 +21,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      candidates, ids far apart and at the int32 extremes), each also on
      rows that are not 16-byte aligned; K5 bitwise at n = 31, 100, 257; K6
      bitwise at B in {1, 3}, S in {1, 16, 37}, di in {8, 100, 8192},
-     state in {4, 8, 16}, float32 and bf16 inputs;
+     state in {4, 8, 16}, float32 and bf16 inputs; K7 (the refinement's
+     float64 residual) on mesh2d(48, 48), grid2d(70, 70) and
+     barabasi_albert(5000, 3) at k in {1, 3, 8, 32}: r within 1e-12 of
+     each entry's |b| + sum |w x| of the plain version's (the host's
+     NumPy), the norms within rtol 1e-12, one launch and one fold a call,
+     each column bitwise equal to its own 1-wide call;
   3. the main path: ``build_hierarchy`` on ``mesh2d(1024, 1024, seed=0)``
      (n = 1,048,576, m = 3,141,633; the scale of the paper's NACA0015 FEM
      mesh), whose recovery marks through K4 on the card (one launch a
@@ -52,8 +57,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      sides as requests of 1, 3 and 4 columns (tol 1e-3, maxiter 2000): a
      cold flush (one group, cache ``miss``, every column's f64 relres <=
      tol), a warm flush (``mem``), a restarted service on the same disk
-     tier (``disk``), all bitwise equal; then a ``matvec_impl="kernel"``
-     service (K5) on one 1-column request, bitwise equal to the fused one;
+     tier (``disk``), all bitwise equal, each flush one group; then a
+     ``matvec_impl="kernel"`` service (K5) on one 1-column request,
+     bitwise equal to the fused one; every flush and solve launches K7
+     and its fold once each a residual pass (1 + its refinements);
   6b. two builds at once on one service: mesh2d(512, 512, seed=0) and
      mesh2d(384, 384, seed=1) built serially with the service's settings,
      then both again from two threads, a ``SolverDaemon``'s ``miss``
@@ -195,9 +202,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      0's prefill inputs as the
      path gives them (bf16, B and C strided views) and cast to float32,
      and at hymba's layer 0 (phase 7b; the record's ``"hymba"``),
-     with the exponentials' issue-rate term printed beside its bound; and
-     the fused solve's device time a PCG trip (``torch.profiler`` over 30
-     trips; no gather kernel may run in it: the prolongation is K2's);
+     with the exponentials' issue-rate term printed beside its bound; K7
+     on the main graph at k = 32 (the solve cell's batch) and k = 8
+     (phase 6's), held to its plain version as in phase 2, its time
+     beside its bytes bound and the plain version's (the record's
+     ``"service_k8"``); and the fused solve's device time a PCG trip
+     (``torch.profiler`` over 30 trips; no gather kernel may run in it: the prolongation is K2's);
      K1 also at a shard's shape (shard 0 of the main operator's 8-shard
      split, on its halo-extended x, k = 8), and the K1 and K4 records
      carry the sharded paths' launches (``"sharded"``).
@@ -229,7 +239,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 Each path's launch counts are set to 0 just before it and read just after:
 K1-K4 over phase 3 (the ``kernels`` record gives K4's main-path launches;
 phase 5's K4 route is counted and printed on its own), K5 over phase 6's
-kernel-route solve, K4 over phase 6b's two builds, K1-K3 over phase 6c's
+kernel-route solve, K7 and its fold over each of phase 6's flushes and
+solves (the K7 record's launches are their sum), K4 over phase 6b's two builds, K1-K3 over phase 6c's
 daemon replay, each spectral call of phase 6d on its own, K4 over each
 of phase 6e's two ``recover_mixed`` runs and K1 over its sharded solve,
 K4 over phase 6f's rounds (its record's ``"dryrun"``), K6 over phase 7's
@@ -664,23 +675,38 @@ def k4_path(np, torch, g, kops):
 def service_path(np, torch, g, b, kops, disk):
     """The service path: cold, warm and restarted flushes bitwise equal,
     then the K5 route against the fused route, with the artifacts on the
-    disk tier ``disk``.  Returns the K5 launch count of the kernel-route
-    solve."""
+    disk tier ``disk``; every flush and solve measures each refinement
+    pass's residual through K7, one launch and one fold a pass.  Returns
+    the K5 launch count of the kernel-route solve and K7's launches over
+    the phase."""
     from repro_torch.pipeline import pdgrass_config
     from repro_torch.solver import SolveRequest, SolverService
 
     cfg = pdgrass_config(alpha=0.05, chunk=512)
     splits = [(0, 1), (1, 4), (4, 8)]          # requests of 1, 3, 4 columns
+    k7 = [0]                                   # K7's launches over the phase
+
+    def k7_gate(before, passes, label):
+        got = tuple(a - b for a, b in zip(k7_launches(kops), before))
+        if got != (passes, passes):
+            fail(f"service {label}: K7 and its fold launched {got} times "
+                 f"over {passes} residual passes; want one each a pass")
+        k7[0] += got[0]
 
     def flush(svc, h, label):
         tickets = [svc.submit(SolveRequest(graph=h, b=b[:, lo:hi], tol=TOL,
                                            maxiter=MAXITER))
                    for lo, hi in splits]
         groups = svc.stats()["scheduler"]["groups"]
+        before = k7_launches(kops)
         t0 = time.perf_counter()
         out = svc.flush()
         wall_s = time.perf_counter() - t0
         rs = [t.result() for t in tickets]     # raises a group's failure
+        if svc.stats()["scheduler"]["groups"] - groups != 1:
+            fail(f"service {label}: the three requests of one config ran "
+                 f"in {svc.stats()['scheduler']['groups'] - groups} groups")
+        k7_gate(before, 1 + rs[0].refinements, label)
         if set(out) != set(tickets):
             fail(f"service {label}: the flush resolved {len(out)} of "
                  f"{len(tickets)} tickets")
@@ -735,7 +761,10 @@ def service_path(np, torch, g, b, kops, disk):
     torch.cuda.synchronize()
     kern_s = time.perf_counter() - t0
     launches = kops.launch_counts()["spmv_ell"]
+    k7_gate((0, 0), 1 + rk.refinements, "K5 route")
+    before = k7_launches(kops)
     rf = svc.solve(**req)
+    k7_gate(before, 1 + rf.refinements, "fused route")
     print(f"service K5 route: {kern_s:.3f} s (solve {rk.solve_ms:.2f} "
           f"ms), iters {rk.iters.tolist()}, {launches} K5 launches; "
           f"fused route solve {rf.solve_ms:.2f} ms, iters "
@@ -746,7 +775,9 @@ def service_path(np, torch, g, b, kops, disk):
             and np.array_equal(rk.iters, rf.iters)):
         fail("the K5 route's x or iterations differ from the fused "
              "route")
-    return launches
+    print(f"service path: {k7[0]} K7 launches and as many folds, one each "
+          f"a residual pass", flush=True)
+    return launches, k7[0]
 
 
 def concurrent_builds(np, torch, rec, kops):
@@ -1978,6 +2009,127 @@ def k6_edge_checks(torch, kops, ref):
             n += 1
     torch.cuda.synchronize()
     return n
+
+
+def k7_check(np, torch, kops, ref, g, csr, b, x, label):
+    """One K7 call (the first pass's form, with b's norms) on the card
+    against its plain version, the host's NumPy: every entry of r within
+    1e-12 of that entry's |b| + sum |w x| (the degree's term included),
+    the norms of r and b within rtol 1e-12.  Returns K7's outputs, the
+    largest of the three errors (r's scaled, the norms' relative) and the
+    plain version's ms for this one call on the host."""
+    b_d, x_d = (torch.as_tensor(a, device="cuda") for a in (b, x))
+    got = kops.laplacian_residual(*csr, b_d, x_d, with_b_norm=True)
+    cpu = [t.cpu() for t in csr]
+    t0 = time.perf_counter()
+    want = ref.laplacian_residual_ref(*cpu, torch.as_tensor(b),
+                                      torch.as_tensor(x), with_b_norm=True)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    r, norm, b_norm = (got[i].cpu().numpy() for i in (0, 2, 3))
+    pr, pnorm, pb = (want[i].numpy() for i in (0, 2, 3))
+    w = g.adj_w.astype(np.float64)
+    ax = np.abs(x)
+    scale = (np.abs(b).astype(np.float64)
+             + np.add.reduceat(w, g.indptr[:-1])[:, None] * ax
+             + np.add.reduceat(w[:, None] * ax[g.adj], g.indptr[:-1],
+                               axis=0))
+    errs = (float((np.abs(r - pr) / scale).max()),
+            float((np.abs(norm - pnorm) / pnorm).max()),
+            float((np.abs(b_norm - pb) / pb).max()))
+    if not max(errs) <= 1e-12:
+        fail(f"K7 {label}: |r - plain| / scale {errs[0]:.3e}, norms rel "
+             f"{errs[1]:.3e}, b's norms rel {errs[2]:.3e}; want all <= "
+             f"1e-12")
+    return got, max(errs), plain_ms
+
+
+def k7_launches(kops):
+    c = kops.launch_counts()
+    return c["laplacian_residual"], c["laplacian_residual_fold"]
+
+
+def k7_edge_checks(np, torch, kops, ref):
+    """K7 against its plain version on a mesh, a 5-point grid and a graph
+    of uneven degrees (hubs of degree in the hundreds beside leaves of
+    degree 3), k in {1, 3, 8, 32} (see ``k7_check``), one launch and one
+    fold a call, and every column of a k-wide call bitwise equal to its
+    own 1-wide call."""
+    from repro_torch.core.graph import barabasi_albert, grid2d, mesh2d
+
+    n = 0
+    for name, g in (("mesh2d(48, 48)", mesh2d(48, 48, seed=1)),
+                    ("grid2d(70, 70)", grid2d(70, 70, seed=2)),
+                    ("barabasi_albert(5000, 3)",
+                     barabasi_albert(5000, 3, seed=3))):
+        csr = kops.upload_csr(g, device="cuda")
+        for k in (1, 3, 8, 32):
+            rng = np.random.default_rng(k)
+            b = rng.standard_normal((g.n, k)).astype(np.float32)
+            x = rng.standard_normal((g.n, k))
+            before = k7_launches(kops)
+            wide, _, _ = k7_check(np, torch, kops, ref, g, csr, b, x,
+                               f"on {name}, k = {k}")
+            if k7_launches(kops) != (before[0] + 1, before[1] + 1):
+                fail(f"K7 on {name}, k = {k}: launches {before} -> "
+                     f"{k7_launches(kops)}, want one launch and one fold")
+            for j in range(k):
+                one = kops.laplacian_residual(
+                    *csr, *(torch.as_tensor(np.ascontiguousarray(
+                        a[:, j:j + 1]), device="cuda") for a in (b, x)),
+                    with_b_norm=True)
+                if not (torch.equal(one[0][:, 0], wide[0][:, j])
+                        and all(torch.equal(o[0], w[j])
+                                for o, w in zip(one[1:], wide[1:]))):
+                    fail(f"K7 on {name}: column {j} of a {k}-wide call "
+                         f"differs from its 1-wide call")
+            n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def k7_record(np, torch, kops, ref, g, launches):
+    """K7 at the service's shapes on the main graph (mesh2d(1024, 1024),
+    the solve cell's graph): k = 32 (the solve cell's batch) and k = 8
+    (phase 6's batch); b float32 and x float64 standard normals.  Each
+    against its plain version (``k7_check``), K7's time (both launches,
+    the first pass's form) beside its plain version's (one call on the
+    host) and its bytes bound: the CSR once, b and x read once, r written
+    once (the partial sums, 3 x k doubles a 256-row block, are left out:
+    1% of r)."""
+    from repro_torch.launch import roofline as rf
+
+    rng = np.random.default_rng(7)
+    csr = kops.upload_csr(g, device="cuda")
+    nnz = int(g.indptr[-1])
+    rows = {}
+    for k in (32, 8):
+        b = rng.standard_normal((g.n, k)).astype(np.float32)
+        x = rng.standard_normal((g.n, k))
+        _, err, plain_ms = k7_check(np, torch, kops, ref, g, csr, b, x,
+                                    f"at mesh2d(1024, 1024), k = {k}")
+        b_d, x_d = (torch.as_tensor(a, device="cuda") for a in (b, x))
+        nbytes = 4 * (g.n + 1) + 8 * nnz + (4 + 8 + 8) * g.n * k
+        bms, by = rf.bound_ms(nbytes, 0)
+        rows[k] = dict(
+            max_rel_err=err,
+            ms=time_ms(torch, lambda: kops.laplacian_residual(
+                *csr, b_d, x_d, with_b_norm=True)),
+            plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by)
+        print(f"K7 at mesh2d(1024, 1024), k = {k}: {nbytes} bytes; "
+              f"{rows[k]['ms']:.4f} ms a call (both launches), bound "
+              f"{bms:.4f} ms ({by}, {100 * bms / rows[k]['ms']:.1f}% of "
+              f"it); plain version {rows[k]['plain_ms']:.1f} ms; largest "
+              f"error {err:.3e}", flush=True)
+    return dict(
+        name="laplacian_residual", route="cuda",
+        source="src/repro_torch/kernels/csrc/laplacian_residual.cu",
+        replaces="none: the reference measures the refinement's residual "
+                 "on the host (src/repro/solver/service.py:654)",
+        launches=launches, max_rel_err=rows[32]["max_rel_err"],
+        ms=rows[32]["ms"], plain_ms=rows[32]["plain_ms"],
+        bound_ms=rows[32]["bound_ms"], bound_by=rows[32]["bound_by"],
+        library_ms=None, service_k8=rows[8])
 
 
 # the serving requests (16 new tokens each: 32 until the time limit cut
@@ -3241,6 +3393,9 @@ def main() -> int:
           f"257", flush=True)
     n_k6 = k6_edge_checks(torch, kops, ref)
     print(f"edge sizes: {n_k6} K6 cases bitwise", flush=True)
+    n_k7 = k7_edge_checks(np, torch, kops, ref)
+    print(f"edge sizes: {n_k7} K7 cases within 1e-12 of the plain version, "
+          f"each column bitwise its 1-wide call", flush=True)
     phase_done("edge_checks")
 
     # ---- phase 3: the main path -----------------------------------------
@@ -3356,7 +3511,8 @@ def main() -> int:
 
     # ---- phase 6: the service path, and its K5 route -------------------
     disk = tempfile.TemporaryDirectory()   # phase 6's disk tier, reused
-    k5_launches = service_path(np, torch, g, b, kops, disk.name)
+    k5_launches, k7_service = service_path(np, torch, g, b, kops,
+                                           disk.name)
     phase_done("service_path")
 
     # ---- phase 6b: two builds at once on one service (K4 under threads) --
@@ -3424,6 +3580,7 @@ def main() -> int:
     k6["training"] = {"launches": k6_train_launches}
     records.append(k6)
     records.append(k6b)
+    records.append(k7_record(np, torch, kops, ref, g, k7_service))
     phase_done("kernel_timing")
 
     # ---- phase 9: the analysis checkers on the card ----------------------

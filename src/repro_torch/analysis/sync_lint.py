@@ -56,6 +56,7 @@ HOT_MODULES = (
     "kernels/spmv_ell.py",
     "kernels/similarity.py",
     "kernels/ssm_scan.py",
+    "kernels/laplacian_residual.py",
     "kernels/_launch.py",
     "spectral/harmonic.py",
     "core/collectives.py",

@@ -61,19 +61,45 @@ class Graph:
     def laplacian_matvec(self, x: np.ndarray) -> np.ndarray:
         """``y = L x`` in float64 over the CSR arrays — numpy only, no scipy.
 
-        ``x`` may be [n] or [n, k].  Used by the solver's f64 refinement
-        residual checks; graphs here are connected (every row non-empty),
-        which ``np.add.reduceat`` over ``indptr`` relies on.
+        ``x`` may be [n] or [n, k].  The service's float64 refinement
+        residual on a CPU service (K7's plain version,
+        :func:`repro_torch.kernels.ref.laplacian_residual_ref`) and the
+        reference K7 is tested against on the card; graphs here are
+        connected (every row non-empty), which ``np.add.reduceat`` over
+        ``indptr`` relies on.
         """
-        x = np.asarray(x, dtype=np.float64)
-        w = self.adj_w.astype(np.float64)
-        wdeg = np.add.reduceat(w, self.indptr[:-1])
-        if x.ndim == 2:
-            nbr = np.add.reduceat(w[:, None] * x[self.adj],
-                                  self.indptr[:-1], axis=0)
-            return wdeg[:, None] * x - nbr
-        nbr = np.add.reduceat(w * x[self.adj], self.indptr[:-1])
-        return wdeg * x - nbr
+        return csr_laplacian_matvec(self.indptr, self.adj, self.adj_w, x)
+
+
+def csr_laplacian_matvec(indptr, adj, adj_w, x) -> np.ndarray:
+    """:meth:`Graph.laplacian_matvec` over bare CSR arrays: each row's
+    weighted degree and neighbour sum in float64, in CSR order."""
+    x = np.asarray(x, dtype=np.float64)
+    w = np.asarray(adj_w).astype(np.float64)
+    wdeg = np.add.reduceat(w, indptr[:-1])
+    if x.ndim == 2:
+        nbr = np.add.reduceat(w[:, None] * x[adj], indptr[:-1], axis=0)
+        return wdeg[:, None] * x - nbr
+    nbr = np.add.reduceat(w * x[adj], indptr[:-1])
+    return wdeg * x - nbr
+
+
+def _two_wide(a: np.ndarray) -> np.ndarray:
+    """``[n, k]`` with at least two columns (a zero column beside a single
+    one).  numpy reduces an array of two or more columns over its rows one
+    row at a time, every column alike, but a single column pairwise: so a
+    column's mean or norm taken through here has the same bits in a batch
+    of any width, and a request batched with others solves as it does
+    alone."""
+    return a if a.shape[1] > 1 else np.concatenate([a, 0 * a], axis=1)
+
+
+def col_mean(a: np.ndarray) -> np.ndarray:
+    return _two_wide(a).mean(axis=0)[:a.shape[1]]
+
+
+def col_norm(a: np.ndarray) -> np.ndarray:
+    return np.linalg.norm(_two_wide(a), axis=0)[:a.shape[1]]
 
 
 def build_graph(n: int, src, dst, weight) -> Graph:

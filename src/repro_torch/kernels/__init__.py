@@ -12,8 +12,10 @@ first use) and their plain PyTorch versions:
                     training), operators ``torch.ops.repro_torch.ssm_scan``
                     and ``ssm_scan_bwd`` with shape-only forms on
                     ``meta``.
+  laplacian_residual.py — K7 the float64 residual of the service's
+                    refinement and its column norms over a graph's CSR.
   ref.py          — the plain version of each kernel.
   _launch.py      — operand checks, the CUDA stream and the launch counts
-                    of all seven.
+                    of all of them.
   ops.py          — public entry points; reads and resets the counts.
 """

@@ -51,6 +51,9 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],
     "repro_ssm_scan_bwd_run": [],
+    "repro_laplacian_residual": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_laplacian_residual_fold": [_P, _P, _I, _I, _I, _P],
+    "repro_laplacian_residual_rows": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -18,7 +18,8 @@ import torch
 launches = dict.fromkeys(("spmv_ell_batched", "cheby_step",
                           "cheby_smooth_zero", "cheby_prolong_step",
                           "restrict_residual", "similarity_mark", "spmv_ell",
-                          "ssm_scan", "ssm_scan_bwd"), 0)
+                          "ssm_scan", "ssm_scan_bwd", "laplacian_residual",
+                          "laplacian_residual_fold"), 0)
 # wrappers may launch from several threads (a daemon's flusher beside the
 # caller's flush): the read-modify-write of a count takes this lock
 launches_lock = threading.Lock()

@@ -16,9 +16,18 @@ in ascending order (:func:`ssm_readout`), as its kernel does; K6b, its
 gradient, also sums over the channels in its kernel's order
 (:func:`warp_partials`, then :func:`group_sum`), so every output of it is
 bitwise too.
+
+K7's plain version (:func:`laplacian_residual_ref`) is the exception: it is
+the service's float64 residual on the host, in NumPy, with each column's
+mean and norm through :func:`repro_torch.core.graph.col_mean` and
+:func:`repro_torch.core.graph.col_norm`.  K7 sums a row's terms one at a
+time in CSR order, where NumPy's ``reduceat`` groups them its own way, and
+sums the columns in its own blocks, so the two agree within a float64
+rounding bound, not bit for bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -294,3 +303,20 @@ def ssm_scan_bwd_ref(x1, dt, Bm, Cm, A, h0, dy, dhT=None):
     for b in range(1, Bsz):
         dA = dA + dA_b[b]
     return dx, ddt, group_sum(dB), group_sum(dC), dA, g
+
+
+def laplacian_residual_ref(indptr, adj, adj_w, b, x, with_b_norm=False):
+    """``(r, mean, norm, b_norm)``: ``r = b - L x`` in float64 for the
+    float32 ``b [n, k]`` and the float64 ``x [n, k]`` over a graph's CSR
+    (:meth:`repro_torch.core.graph.Graph.laplacian_matvec`), each column's
+    mean and norm of ``r``, and the norms of ``b`` (``None`` unless
+    ``with_b_norm``), as ``[k]`` float64 tensors."""
+    from repro_torch.core.graph import (col_mean, col_norm,
+                                        csr_laplacian_matvec)
+
+    b64 = b.numpy().astype(np.float64)
+    r = b64 - csr_laplacian_matvec(indptr.numpy(), adj.numpy(),
+                                   adj_w.numpy(), x.numpy())
+    b_norm = torch.from_numpy(col_norm(b64)) if with_b_norm else None
+    return (torch.from_numpy(r), torch.from_numpy(col_mean(r)),
+            torch.from_numpy(col_norm(r)), b_norm)

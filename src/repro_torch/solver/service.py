@@ -48,7 +48,9 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import Graph, col_mean
+from repro_torch.kernels.laplacian_residual import (laplacian_residual,
+                                                    upload_csr)
 from repro_torch.obs import Metrics, get_metrics, get_tracer
 from repro_torch.obs.device import trace_annotation
 from repro_torch.pipeline import PipelineConfig, pdgrass_config
@@ -66,24 +68,6 @@ from repro_torch.solver.requests import (AdmissionError, GraphHandle,
 # every tag of the reference (``solver-v7``), so the two packages never
 # read each other's artifacts from a shared disk_dir.
 _SCHEMA = "solver-torch-v1"
-
-
-def _two_wide(a: np.ndarray) -> np.ndarray:
-    """``[n, k]`` with at least two columns (a zero column beside a single
-    one).  numpy reduces an array of two or more columns over its rows one
-    row at a time, every column alike, but a single column pairwise: so a
-    column's mean or norm taken through here has the same bits in a batch
-    of any width, and a request batched with others solves as it does
-    alone."""
-    return a if a.shape[1] > 1 else np.concatenate([a, 0 * a], axis=1)
-
-
-def _col_mean(a: np.ndarray) -> np.ndarray:
-    return _two_wide(a).mean(axis=0)[:a.shape[1]]
-
-
-def _col_norm(a: np.ndarray) -> np.ndarray:
-    return np.linalg.norm(_two_wide(a), axis=0)[:a.shape[1]]
 
 
 def _next_pow2(k: int) -> int:
@@ -215,6 +199,10 @@ class SolverService:
         # fingerprint -> solve closure, LRU-bounded (see _solver_for)
         self._solvers: "collections.OrderedDict[str, object]" = \
             collections.OrderedDict()
+        # graph fingerprint -> its CSR on the device, K7's operands; LRU,
+        # the closures' capacity (see _csr_for)
+        self._csrs: "collections.OrderedDict[str, tuple]" = \
+            collections.OrderedDict()
         # [(ticket, handle, request)] — the scheduler's input queue.
         # Guarded by _lock: submits may race the daemon's background
         # flusher (and each other) once a SolverDaemon wraps this service.
@@ -226,7 +214,7 @@ class SolverService:
         # `with self._lock` or from a *_locked method.
         # lock: self._lock
         #   _pending _pending_columns _next_ticket _sched
-        #   _solvers _warmed _conv_digests _solves_by_config
+        #   _solvers _csrs _warmed _conv_digests _solves_by_config
         self._lock = threading.RLock()
         # "submitted" counts admitted requests (rejected ones never enter
         # the queue), so submitted/rejected is the admission split.
@@ -286,29 +274,50 @@ class SolverService:
         value, source = self.cache.get_or_build(key, build)
         return key, value, source
 
+    def _lru(self, field: str, key, make):
+        """``self.<field>[key]``, made by ``make()`` on a miss, in that
+        LRU dict bounded to the artifact cache's capacity.  The dict is
+        read and written only under the lock; ``make`` runs OUTSIDE it:
+        it stages device arrays and can take a while, and holding _lock
+        there would stall every submit."""
+        with self._lock:
+            od = getattr(self, field)
+            value = od.get(key)
+            if value is not None:
+                od.move_to_end(key)
+                return value
+        value = make()
+        with self._lock:
+            od = getattr(self, field)
+            # two racing builders: first insert wins, both get one value
+            value = od.setdefault(key, value)
+            od.move_to_end(key)
+            while len(od) > self.cache.capacity:
+                od.popitem(last=False)
+            return value
+
     def _solver_for(self, key: str, artifacts):
         """Solve closures are process-local (not picklable), so they live
         beside — not inside — the artifact cache, LRU-bounded to the same
         capacity (each closure holds its level operators on the device)."""
-        with self._lock:
-            fn = self._solvers.get(key)
-            if fn is not None:
-                self._solvers.move_to_end(key)
-                return fn
-        # build OUTSIDE the lock: make_solver stages device arrays and can
-        # take a while — holding _lock here would stall every submit
-        idx, val, hier = artifacts
-        with get_tracer().span("solver.setup"):
-            fn = make_solver(idx, val, hierarchy=hier, precond=self.precond,
-                             matvec_impl=self.matvec_impl, mesh=self.mesh,
-                             shard_axis=self.shard_axis, device=self.device)
-        with self._lock:
-            # two racing builders: first insert wins, both get one closure
-            fn = self._solvers.setdefault(key, fn)
-            self._solvers.move_to_end(key)
-            while len(self._solvers) > self.cache.capacity:
-                self._solvers.popitem(last=False)
-            return fn
+        def make():
+            idx, val, hier = artifacts
+            with get_tracer().span("solver.setup"):
+                return make_solver(idx, val, hierarchy=hier,
+                                   precond=self.precond,
+                                   matvec_impl=self.matvec_impl,
+                                   mesh=self.mesh, shard_axis=self.shard_axis,
+                                   device=self.device)
+
+        return self._lru("_solvers", key, make)
+
+    def _csr_for(self, handle: GraphHandle):
+        """The graph's CSR on the device for the refinement's residual
+        (K7), uploaded once a graph: keyed by the graph's fingerprint, so
+        every config of a graph shares it, and LRU-bounded to the solve
+        closures' capacity."""
+        return self._lru("_csrs", handle.fingerprint,
+                         lambda: upload_csr(handle.graph, device=self.device))
 
     def warmup(self, graph: Union[Graph, GraphHandle],
                configs: Optional[Sequence[PipelineConfig]] = None,
@@ -621,7 +630,7 @@ class SolverService:
             # component of b is solvable.  Center here so the residual
             # measurement below targets the solvable system (else the
             # unsolvable mean would read as non-convergence).
-            B -= _col_mean(B)
+            B -= col_mean(B)
             # Per-column tolerance and iteration budget: each request keeps
             # its own contract even when batched with stricter/larger
             # neighbors.  Padding columns are inert BY CONSTRUCTION — tol=inf
@@ -648,55 +657,65 @@ class SolverService:
         t0 = time.perf_counter()
         with tracer.span("solver.solve", k=k, k_pad=k_pad, n=g.n), \
                 trace_annotation("solver.solve"):
-            res = solve(torch.as_tensor(B, device=self.device), tol=inner_tol,
+            b_dev = torch.as_tensor(B, device=self.device)
+            res = solve(b_dev, tol=inner_tol,
                         maxiter=torch.as_tensor(maxiter_col,
                                                 device=self.device))
-            x = res.x.cpu().numpy().astype(np.float64)
+            x = res.x.to(torch.float64)
             iters = res.iters.cpu().numpy().copy()
 
-        # Mixed-precision iterative refinement: the f32 device solve hits
-        # its attainable-accuracy floor on large/ill-conditioned graphs,
-        # so measure the true residual in f64 on the host and re-solve
-        # for the correction on the device until tol is genuinely met.
-        # The residual matvec runs over the Graph's own CSR arrays
-        # (numpy f64, no scipy on the solve path).
-        with tracer.span("solver.residual", k=k, pass_=0):
-            B64 = B.astype(np.float64)
-            bn = np.maximum(_col_norm(B64),
-                            np.finfo(np.float64).tiny)
-            resid = B64 - g.laplacian_matvec(x)
-            relres = _col_norm(resid) / bn
+        # Mixed-precision iterative refinement: the f32 solve hits its
+        # attainable-accuracy floor on large/ill-conditioned graphs, so
+        # measure the true residual in f64 and re-solve for the correction
+        # until tol is genuinely met.  x, the residual and the correction
+        # stay on the service's device: the residual and its column norms
+        # are K7's over the graph's own CSR (on a CPU service its plain
+        # version, the host's NumPy), and only the k_pad relative
+        # residuals that the accept/stop rule reads come back each pass.
+        def residual(x, pass_, bn=None):
+            """``(r, r's column means, relres, bn)`` of ``x``; the first
+            pass (``bn`` None) also measures ``b``'s norms ``bn``."""
+            with tracer.span("solver.residual", k=k, pass_=pass_,
+                             on=self.device.type):
+                r, r_mean, r_norm, b_norm = laplacian_residual(
+                    *self._csr_for(handle), b_dev, x,
+                    with_b_norm=bn is None)
+                if bn is None:
+                    bn = torch.clamp(b_norm, min=np.finfo(np.float64).tiny)
+                # the one read-back a pass: the k_pad relative residuals
+                # that the accept/stop rule reads
+                return r, r_mean, (r_norm / bn).cpu().numpy(), bn
+
+        resid, resid_mean, relres, bn = residual(x, 0)
         refinements = 0
         while refinements < self.max_refine and np.any(relres > tol_col):
-            rc = resid - _col_mean(resid)
+            rc = (resid - resid_mean).to(torch.float32)
             # corrections draw from each column's remaining budget; the
             # span ends on the read-back, as solver.solve's does
             with tracer.span("solver.refine", pass_=refinements + 1,
                              k=k, k_pad=k_pad), \
                     trace_annotation("solver.refine"):
-                corr = solve(torch.as_tensor(rc.astype(np.float32),
-                                             device=self.device),
-                             tol=inner_tol,
+                corr = solve(rc, tol=inner_tol,
                              maxiter=torch.as_tensor(np.maximum(
                                  maxiter_col - iters, 0),
                                  device=self.device))
-                dx = corr.x.cpu().numpy().astype(np.float64)
                 corr_iters = corr.iters.cpu().numpy()
-            x_new = x + dx
-            with tracer.span("solver.residual", k=k,
-                             pass_=refinements + 1):
-                resid_new = B64 - g.laplacian_matvec(x_new)
-                relres_new = _col_norm(resid_new) / bn
+            x_new = x + corr.x.to(torch.float64)
+            resid_new, mean_new, relres_new, _ = residual(
+                x_new, refinements + 1, bn)
             # accept per column whenever the correction improved it ...
             take = relres_new < relres
-            x = np.where(take, x_new, x)
-            resid = np.where(take, resid_new, resid)
+            on_dev = torch.as_tensor(take, device=self.device)
+            x = torch.where(on_dev, x_new, x)
+            resid = torch.where(on_dev, resid_new, resid)
+            resid_mean = torch.where(on_dev, mean_new, resid_mean)
             halved = np.any(relres_new < 0.5 * relres)
             relres = np.where(take, relres_new, relres)
             iters = iters + corr_iters
             refinements += 1
             if not halved:
                 break  # ... but stop once passes stall at the f32 floor
+        x = x[:, :k].cpu().numpy()
         solve_ms = (time.perf_counter() - t0) * 1e3
         with self._lock:
             self._conv_digests.add(config_digest)

@@ -588,7 +588,7 @@ def test_real_tree_is_clean_on_the_cpu():
     assert per_check == {"sync": [], "locks": [], "cuda": []}
     assert per_check.not_run == ["cuda-smem-budget", "cuda-register-budget"]
     # the hot modules are all there, and the lint read them
-    assert len(sync_lint.HOT_MODULES) == 9
+    assert len(sync_lint.HOT_MODULES) == 10
     assert all(os.path.exists(os.path.join(PORT_ROOT, m))
                for m in sync_lint.HOT_MODULES)
 

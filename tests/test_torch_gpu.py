@@ -1,7 +1,7 @@
-"""The CUDA kernels K1-K6 and K6b (K6's gradient) against their plain
-PyTorch versions, and the port's service, sharded planes, the production
-dry run, LM serving paths (every family), training and the LM dry run's
-card cells, on the card.
+"""The CUDA kernels K1-K6, K6b (K6's gradient) and K7 (the refinement's
+float64 residual) against their plain versions, and the port's service,
+sharded planes, the production dry run, LM serving paths (every family),
+training and the LM dry run's card cells, on the card.
 
 Every ``gpu``-marked test needs a CUDA device and skips without one
 (decided in a fixture).  The file imports no JAX, so it runs on a machine
@@ -29,7 +29,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import recovery  # noqa: E402
 from repro_torch.core.distributed import recover_mixed  # noqa: E402
-from repro_torch.core.graph import mesh2d, star_hub  # noqa: E402
+from repro_torch.core.graph import (barabasi_albert, col_mean,  # noqa: E402
+                                    col_norm, grid2d, mesh2d, star_hub)
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import similarity as ksim  # noqa: E402
@@ -490,6 +491,136 @@ def test_gpu_batched_columns_match_single_solves(cuda):
         one = solve(b[:, j:j + 1], tol=1e-5, maxiter=2000)
         assert torch.equal(res.x[:, j], one.x[:, 0])
         assert int(res.iters[j]) == int(one.iters[0])
+
+
+def _k7_graph(name):
+    """A mesh, a 5-point grid and a graph of uneven degrees (hubs of
+    degree in the hundreds beside leaves of degree 3), each over several
+    of K7's 256-row blocks."""
+    return {"mesh2d": lambda: mesh2d(48, 48, seed=1),
+            "grid2d": lambda: grid2d(70, 70, seed=2),
+            "uneven": lambda: barabasi_albert(5000, 3, seed=3)}[name]()
+
+
+def _csr_order_laplacian(g, x):
+    """``L x`` on the host in float64 with each row's weighted degree and
+    neighbour sum taken in CSR order, one rounded product and add a term,
+    as K7 sums (numpy's ``add.reduceat`` in ``Graph.laplacian_matvec``
+    groups a row's terms in its own order)."""
+    x = np.asarray(x, dtype=np.float64)
+    xs = x.reshape(g.n, -1)
+    deg = np.diff(g.indptr)
+    w = g.adj_w.astype(np.float64)
+    wdeg, nbr = np.zeros(g.n), np.zeros(xs.shape)
+    for t in range(int(deg.max())):
+        rows = np.nonzero(deg > t)[0]
+        j = g.indptr[rows] + t
+        wdeg[rows] = wdeg[rows] + w[j]
+        nbr[rows] = nbr[rows] + w[j][:, None] * xs[g.adj[j]]
+    return (wdeg[:, None] * xs - nbr).reshape(x.shape)
+
+
+def _k7_launches():
+    c = kops.launch_counts()
+    return c["laplacian_residual"], c["laplacian_residual_fold"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mesh2d", "grid2d", "uneven"])
+@pytest.mark.parametrize("k", [1, 3, 8, 32, 40])
+def test_gpu_k7_matches_host_residual(cuda, name, k):
+    """K7 against the host's float64 residual (``Graph.laplacian_matvec``,
+    the service's CPU path): r within 1e-12 of each entry's |b| + |w x|
+    sum, and bitwise equal to the host's sums in CSR order; the norms
+    within rtol 1e-13, the means within 1e-12 of the columns' mean of
+    that sum; every column bitwise equal to its own 1-wide call; one
+    launch and one fold a call."""
+    g = _k7_graph(name)
+    rng = np.random.default_rng(k)
+    b = rng.standard_normal((g.n, k)).astype(np.float32)
+    x = rng.standard_normal((g.n, k))
+    csr = kops.upload_csr(g, device=cuda)
+    b_d, x_d = torch.as_tensor(b, device=cuda), torch.as_tensor(x, device=cuda)
+    before = _k7_launches()
+    r, mean, norm, b_norm = kops.laplacian_residual(*csr, b_d, x_d,
+                                                    with_b_norm=True)
+    torch.cuda.synchronize()
+    assert _k7_launches() == (before[0] + 1, before[1] + 1)
+    b64 = b.astype(np.float64)
+    want = b64 - g.laplacian_matvec(x)
+    w = g.adj_w.astype(np.float64)
+    scale = (np.abs(b64) + np.add.reduceat(w, g.indptr[:-1])[:, None]
+             * np.abs(x) + np.add.reduceat(w[:, None] * np.abs(x)[g.adj],
+                                           g.indptr[:-1], axis=0))
+    assert np.all(np.abs(r.cpu().numpy() - want) <= 1e-12 * scale)
+    assert np.array_equal(r.cpu().numpy(), b64 - _csr_order_laplacian(g, x))
+    np.testing.assert_allclose(norm.cpu().numpy(), col_norm(want),
+                               rtol=1e-13)
+    np.testing.assert_allclose(b_norm.cpu().numpy(), col_norm(b64),
+                               rtol=1e-13)
+    assert np.all(np.abs(mean.cpu().numpy() - col_mean(want))
+                  <= 1e-12 * scale.mean(axis=0))
+    for j in range(k):
+        one = kops.laplacian_residual(*csr, b_d[:, j:j + 1].contiguous(),
+                                      x_d[:, j:j + 1].contiguous(),
+                                      with_b_norm=True)
+        assert torch.equal(one[0][:, 0], r[:, j])
+        for got, wide in zip(one[1:], (mean, norm, b_norm)):
+            assert torch.equal(got[0], wide[j])
+    # the later passes leave b's norms out
+    assert kops.laplacian_residual(*csr, b_d, x_d)[3] is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tol,max_refine", [(1e-4, 3), (3e-6, 1)])
+def test_gpu_request_batched_with_others_solves_as_it_does_alone(
+        cuda, tol, max_refine):
+    """On the card, as on the CPU: a request's x, iterations and relres do
+    not depend on the width of the batch it rides in, K7 measuring each
+    pass's residual (one launch and one fold a pass, every residual span
+    on the card) and the reported relres that of a host float64
+    recomputation (its sums in CSR order, as K7's) within 1e-10.  The refinement stops for the whole group
+    once no column halves its residual, so a batch may take more passes
+    than a column alone: the case that refines takes one pass."""
+    from repro_torch.obs import get_tracer
+
+    g = mesh2d(16, 16, seed=4)
+    svc = SolverService(device=cuda, alpha=0.05, max_refine=max_refine)
+    rng = np.random.default_rng(8)
+    bs = [rng.standard_normal(g.n).astype(np.float32) + 3.0
+          for _ in range(6)]
+    tracer = get_tracer()
+    was = tracer.enabled
+    tracer.clear()
+    tracer.enable()
+    try:
+        before = _k7_launches()
+        tickets = [svc.submit(SolveRequest(graph=g, b=b, tol=tol))
+                   for b in bs]
+        svc.flush()
+        passes = 1 + tickets[0].result().refinements
+        assert _k7_launches() == (before[0] + passes, before[1] + passes)
+        for t, b in zip(tickets, bs):
+            alone = svc.solve(g, b, tol=tol)
+            batched = t.result()
+            np.testing.assert_array_equal(batched.x, alone.x)
+            np.testing.assert_array_equal(batched.iters, alone.iters)
+            np.testing.assert_array_equal(batched.relres, alone.relres)
+            bc = (b - col_mean(b[:, None])[0]).astype(np.float64)
+            r = bc - _csr_order_laplacian(g, batched.x)
+            np.testing.assert_allclose(
+                batched.relres, np.linalg.norm(r) / np.linalg.norm(bc),
+                rtol=1e-10)
+            assert batched.converged
+        if tol < 5e-6:      # below what the float32 solve is asked for
+            assert passes > 1
+        resid = [e for e in tracer.events()
+                 if e["name"] == "solver.residual" and "dur_ns" in e]
+        assert len(resid) >= 7 and {e["args"]["on"] for e in resid} == {
+            "cuda"}
+    finally:
+        tracer.clear()
+        tracer.enabled = was
 
 
 @pytest.mark.gpu

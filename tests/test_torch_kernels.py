@@ -459,3 +459,35 @@ def test_k6_plain_casts_to_f32_and_sums_state_in_order():
             acc = acc + h[..., n] * Cm[:, t, None, n]
         assert torch.equal(y[:, t], acc)
     assert torch.equal(hT, h)
+
+
+# -- K7 ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(TG))
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_k7_plain_is_the_host_residual(name, k):
+    """On the CPU K7's wrapper runs the host's float64 residual: ``b - L x``
+    bitwise equal to the reference's ``Graph.laplacian_matvec`` over the
+    same graph, each column's mean and norm those of numpy over the
+    columns alone (a column's bits in a batch of any width), and no
+    launch counted."""
+    tg, jg = TG[name], JG[name]
+    rng = np.random.default_rng(k)
+    b = rng.standard_normal((tg.n, k)).astype(np.float32)
+    x = rng.standard_normal((tg.n, k))
+    before = tops.launch_counts()
+    csr = tops.upload_csr(tg, device="cpu")
+    r, mean, norm, b_norm = tops.laplacian_residual(
+        *csr, torch.as_tensor(b), torch.as_tensor(x), with_b_norm=True)
+    assert tops.launch_counts() == before
+    want = b.astype(np.float64) - jg.laplacian_matvec(x)
+    assert r.dtype == torch.float64 and np.array_equal(r.numpy(), want)
+    assert np.array_equal(r.numpy(), b - tg.laplacian_matvec(x))
+    for j in range(k):
+        col = np.stack([want[:, j], 0 * want[:, j]], axis=1)
+        bj = np.stack([b[:, j], 0 * b[:, j]], axis=1).astype(np.float64)
+        assert mean[j].item() == col.mean(axis=0)[0]
+        assert norm[j].item() == np.linalg.norm(col, axis=0)[0]
+        assert b_norm[j].item() == np.linalg.norm(bj, axis=0)[0]
+    assert tops.laplacian_residual(*csr, torch.as_tensor(b),
+                                   torch.as_tensor(x))[3] is None

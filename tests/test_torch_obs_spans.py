@@ -143,6 +143,15 @@ def test_one_residual_and_one_more_a_refinement(tracer, tol):
                     if _inside(lp, r)]) == 1
 
 
+def test_residual_spans_name_the_device_they_ran_on(tracer):
+    g = mesh2d(12, 12, seed=5)
+    resp = _submit_flush(SolverService(device="cpu", alpha=0.05), g,
+                         tol=1e-9)
+    resid = _named(tracer.events(), "solver.residual")
+    assert len(resid) == 1 + resp.refinements >= 2
+    assert {e["args"]["on"] for e in resid} == {"cpu"}
+
+
 def _tests_made(trips_run: int, max_trips: int) -> int:
     """Host tests of "all done" by a loop whose last column finished at
     ``trips_run``: one each ``_PCG_CHECK_EVERY`` trips, and the one that

@@ -806,6 +806,28 @@ def test_solver_closures_bounded_by_cache_capacity():
     assert len(svc._solvers) <= 2
 
 
+def test_residual_csr_is_kept_per_graph_and_bounded():
+    """The refinement's CSR operands are made once a graph, whatever the
+    config, and held to the closures' capacity."""
+    svc = SolverService(device="cpu",
+                        alpha=0.05, precond="none", cache_capacity=2)
+    rng = np.random.default_rng(30)
+    g = grid2d(6, 6, seed=0)
+    b = rng.standard_normal(g.n).astype(np.float32)
+    for config in (None, fegrass_config(alpha=0.05)):
+        assert svc.solve(g, b, pipeline=config).converged
+    assert len(svc._solvers) == 2 and len(svc._csrs) == 1
+    indptr, adj, adj_w = next(iter(svc._csrs.values()))
+    assert (indptr.dtype, adj.dtype, adj_w.dtype) == (
+        torch.int32, torch.int32, torch.float32)
+    assert np.array_equal(adj_w.numpy(), g.adj_w)
+    for s in range(1, 4):
+        g = grid2d(6, 6, seed=s)
+        assert svc.solve(g, rng.standard_normal(g.n).astype(
+            np.float32)).converged
+    assert len(svc._csrs) == 2
+
+
 def test_batched_pcg_handles_zero_columns():
     g = grid2d(8, 8, seed=22)
     idx, val = ell_laplacian(g, device="cpu")
